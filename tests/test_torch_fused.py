@@ -1,0 +1,98 @@
+"""Parity of K1's plain version (trajopt_torch/core/cuda_fused.py) with the
+interpret-mode ``pallas_ilqr_backward_fused`` of trajopt_tpu, float64 on the
+CPU: Cartpole v0 on a trajectory with actions exactly at ±umax, v1 (cos/sin
+features) with reg 2, and the slew-rate cost under a sigmoid activation.
+
+The interpret-mode kernel runs with ``time_chunk=1``: the interpreter compiles
+the unrolled chunk body, so one step per grid trip keeps the call short."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import trajopt_tpu
+from trajopt_torch.core.cuda_fused import cuda_ilqr_backward_fused
+from trajopt_torch.core.cuda_lqr import from_soa, lane_pad, pad_lanes, to_soa
+from trajopt_torch.solvers.common import make_weighting
+from trajopt_torch.utils.convert import env_from_fields
+from trajopt_tpu.core.pallas_fused import pallas_ilqr_backward_fused
+from trajopt_tpu.core.pallas_lqr import _to_lanes, pack_scalar, unpack_lanes
+from trajopt_tpu.solvers.common import make_weighting as jax_weighting
+
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-9, atol=1e-11)
+
+
+def _trajectory(jenv, N, T, seed, saturate=False):
+    """Reference trajectory rolled out with the JAX env; ``saturate`` puts
+    actions exactly at ±umax on half the steps."""
+    rng = np.random.default_rng(seed)
+    us = 0.3 * rng.standard_normal((N, T, jenv.dm_act))
+    if saturate:
+        umax = jenv.umax[0]
+        us[:, ::2, 0] = np.where(rng.random((N, (T + 1) // 2)) < 0.5, umax, -umax)
+    x = np.tile(np.asarray(jenv.x0), (N, 1)) + 0.3 * rng.standard_normal((N, jenv.dm_state))
+    xs = [x]
+    for t in range(T):
+        x = np.asarray(jax.vmap(jenv.dynamics)(jnp.asarray(x), jnp.asarray(us[:, t])))
+        xs.append(x)
+    return np.stack(xs, axis=1), us
+
+
+@pytest.mark.parametrize(
+    "name,kw,reg,lam,saturate,activation",
+    [
+        ("Cartpole-TO-v0", {}, 1, 0.1, True, None),
+        ("Cartpole-TO-v1", {}, 2, 0.7, False, None),
+        ("Cartpole-TO-v0", {"slew_rate": True}, 1, 0.2, False, {"mult": 0.5, "shift": 4.0}),
+    ],
+)
+def test_k1_plain_matches_pallas_fused_interpret(name, kw, reg, lam, saturate, activation):
+    jenv = trajopt_tpu.make(name, **kw)
+    tenv = env_from_fields(name, dataclasses.asdict(jenv))
+    N, T = 4, 8
+    xref, uref = _trajectory(jenv, N, T, seed=3, saturate=saturate)
+    if saturate:
+        assert np.any(np.abs(uref) == jenv.umax[0])
+    lam_v = np.full(N, lam)
+    ulast = np.concatenate([np.zeros_like(uref[:, :1]), uref[:, :-1]], axis=1)
+
+    # called the way tests/test_pallas_fused.py calls the fused kernel
+    w_j = jax_weighting(T, activation)
+    n_pad_j = 128
+    Kl, kffl, dVl, badl = pallas_ilqr_backward_fused(
+        jenv,
+        _to_lanes(jnp.asarray(xref[:, :T]), n_pad_j), _to_lanes(jnp.asarray(uref), n_pad_j),
+        _to_lanes(jnp.asarray(ulast), n_pad_j),
+        _to_lanes(jnp.asarray(xref[:, T])[:, None], n_pad_j)[0],
+        w_j, pack_scalar(jnp.asarray(lam_v), n_pad_j), reg, time_chunk=1, interpret=True,
+    )
+    pol_j, dV_j, div_j = unpack_lanes(Kl, kffl, dVl, badl, N, T, jenv.dm_state, jenv.dm_act)
+
+    n_pad = lane_pad(N)
+    w_t = make_weighting(T, activation, device="cpu", dtype=torch.float64)
+    K_l, kff_l, dV_l, bad_l = cuda_ilqr_backward_fused(
+        tenv, to_soa(torch.as_tensor(xref[:, :T]), n_pad), to_soa(torch.as_tensor(uref), n_pad),
+        to_soa(torch.as_tensor(ulast), n_pad), to_soa(torch.as_tensor(xref[:, T:]), n_pad)[0],
+        w_t, pad_lanes(torch.as_tensor(lam_v), n_pad), reg,
+    )
+    dx, du = jenv.dm_state, jenv.dm_act
+    np.testing.assert_array_equal(bad_l[:N].numpy(), np.asarray(div_j))
+    np.testing.assert_allclose(from_soa(K_l, N, (du, dx)).numpy(), np.asarray(pol_j.K), **TOL)
+    np.testing.assert_allclose(from_soa(kff_l, N, (du,)).numpy(), np.asarray(pol_j.kff), **TOL)
+    np.testing.assert_allclose(dV_l[:, :N].T.numpy(), np.asarray(dV_j), **TOL)
+
+
+def test_fused_wrapper_rejects_bad_input():
+    tenv = env_from_fields("Cartpole-TO-v0", {})
+    x = torch.zeros(8, 4, 32, dtype=torch.float64)
+    u = torch.zeros(8, 1, 32, dtype=torch.float64)
+    w = torch.ones(9, dtype=torch.float64)
+    lam = torch.ones(32, dtype=torch.float64)
+    with pytest.raises(ValueError, match="reg"):
+        cuda_ilqr_backward_fused(tenv, x, u, u, x[0], w, lam, reg=3)
