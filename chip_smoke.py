@@ -20,7 +20,22 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    instance-iterations/s of the main path; per kernel ms per launch, launches
    per iteration, the plain version's ms and the least time the card could
    take (bound) from this run's bytes and operations;
-6. the kernels line and, last, the device line.
+6. kernel K5 (the parallel-in-time backward) against its plain version:
+   float64 at (T, dx, du) = (19, 3, 2), (130, 2, 1) and (2500, 4, 2) with
+   λ ∈ {0, 0.6}; float32 on the SPD problem of tests/test_tpu.py at
+   T ∈ {60, 333, 1000}, dx=4, du=2; a non-PD action Hessian (equal flags,
+   finite outputs); float32 on the replan path's own first backward inputs;
+7. the replan path: make_ilqr_solver on Pendulum-TO-v0, dt=0.05, T=100,
+   3 iterations, float32, backward="cuda-pscan"; it must launch K5 at least
+   twice in every iteration that works, improve on the initial return and
+   land within 1e-4 of backward="pscan" (plain PyTorch);
+8. the MPC path: make_mpc_runner on Pendulum-TO-v0 (examples/ilqr/mpc/
+   pendulum.py: horizon 25, 100 control steps, 10 iterations), cuda-pscan,
+   noise from a seeded generator; finite states, the pendulum upright at the
+   end (|wrap(θ)| < 0.6), K5 launched; then the timings of the replan (three
+   engines, and one cuda-pscan replan under torch.profiler: device busy time
+   and host calls), of MPC control steps and of K5 per launch at two shapes;
+9. the kernels line (K1-K5) and, last, the device line.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 package beside it.
@@ -29,6 +44,7 @@ package beside it.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,6 +69,33 @@ N_SMALL, T_SMALL = 50, 48
 #   cost blocks about 260; backward step (bwd_step.cuh) about 520
 #   -> fused step about 2030; stream backward step 520.
 OPS_PER_STEP = {"K1": 2030, "K2": 192, "K3": 192, "K4": 520}
+
+# The replan path (bench.py's mpc_batch1_replan_ms row) and the MPC example.
+T_REPLAN, ITER_REPLAN, REPLANS = 100, 3, 5
+MPC_HORIZON, MPC_STEPS, MPC_ITER = 25, 100, 10
+
+
+def k5_operations(T, dx, du):
+    """Operations of one K5 call, counted from csrc/pscan_backward.cu (one per
+    add, multiply, divide, compare, select, square root or negation): the
+    element of each of the T steps, ⌈log₂(T+1)⌉ levels of T+1 combines, the
+    gains and dV of each step."""
+    def mm(n, k, m):
+        return n * m * (2 * k - 1)
+
+    def chol(n):
+        return sum(2 * j + 5 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+
+    solve = 2 * du * du
+    gj = sum(3 * (dx - 1 - k) + 4 * dx * (dx - 1 - k) + 1 + 2 * dx + 4 * dx * (dx - 1)
+             for k in range(dx))
+    combine = 8 * mm(dx, dx, dx) + 4 * mm(dx, dx, 1) + 5 * dx + 6 * dx * dx + gj
+    element = (chol(du) + (2 * dx + 1) * solve + 3 * mm(dx, du, dx) + 2 * mm(dx, du, 1)
+               + 5 * dx * dx + 3 * dx)
+    gains = (2 * mm(du, dx, dx) + mm(du, dx, du) + du * du + chol(du) + (dx + 1) * solve
+             + 2 * dx * du + mm(du, dx, 1) + mm(du, du, 1) + 4 * du + 2 * (2 * du - 1) + 4)
+    levels = max(1, T.bit_length())        # ⌈log₂(T+1)⌉
+    return T * (element + gains) + levels * (T + 1) * combine
 
 
 def log(*args):
@@ -205,6 +248,92 @@ def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_i
         errors(f"K3 {part}", outs[i + 1], outsp[i + 1], tol)
     inp.update(streams=streams, w_roll=w, alphas=alphas, alpha_l=alpha_l, env=env_v0)
     return errs, inp
+
+
+def pscan_problem(T, dx, du, dtype, device, seed=0, non_pd=False):
+    """The SPD problem of tests/test_tpu.py:93-110 (seed 0 there), with one
+    negative-definite action Hessian at T/2 when ``non_pd``."""
+    from trajopt_torch.core.types import QuadraticCost
+
+    rng = np.random.default_rng(seed)
+
+    def spd(d, n, s):
+        M = rng.standard_normal((n, d, d))
+        return s * np.einsum("nij,nkj->nik", M, M) + d * np.eye(d)
+
+    Cxx, cx = spd(dx, T + 1, 0.1), rng.standard_normal((T + 1, dx))
+    Cuu, cu = spd(du, T, 1.0), rng.standard_normal((T, du))
+    Cxu = 0.01 * rng.standard_normal((T, dx, du))
+    A = np.eye(dx) + 0.01 * rng.standard_normal((T, dx, dx))
+    B = 0.1 * rng.standard_normal((T, dx, du))
+    if non_pd:
+        Cuu[T // 2] = -4.0 * np.eye(du)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    return QuadraticCost(t(Cxx), t(cx), t(Cuu), t(cu), t(Cxu), t(np.zeros(T + 1))), t(A), t(B)
+
+
+def with_lambda(cost, lam):
+    """λ folded into the action Hessian, as cuda_pilqr_backward_reg does."""
+    du = cost.Cuu.shape[-1]
+    return cost._replace(Cuu=cost.Cuu + lam * torch.eye(du, dtype=cost.Cuu.dtype,
+                                                         device=cost.Cuu.device))
+
+
+def check_k5_case(label, cost, A, B, tol):
+    """K5 against its plain version on the same inputs; returns the max abs
+    error of K and whether both flag divergence alike."""
+    from trajopt_torch.core.cuda_pscan import cuda_pilqr_backward, pilqr_backward_plain
+
+    pol, val, dV = cuda_pilqr_backward(cost, A, B)
+    ppol, pval, pdV = pilqr_backward_plain(cost, A, B)
+    torch.cuda.synchronize()
+    err = errors(f"K5 {label} K", pol.K, ppol.K, tol)
+    errors(f"K5 {label} kff", pol.kff, ppol.kff, tol)
+    errors(f"K5 {label} V", val.V, pval.V, tol)
+    errors(f"K5 {label} v", val.v, pval.v, tol)
+    errors(f"K5 {label} dV", dV, pdV, tol)
+    flag = lambda p, v: bool(~(torch.isfinite(p.K).all() & torch.isfinite(p.kff).all()  # noqa: E731
+                               & torch.isfinite(v.V).all()))
+    if flag(pol, val) != flag(ppol, pval):
+        fail(f"K5 {label}: divergence flags differ")
+    return err
+
+
+def check_k5(device):
+    """Phase 6 but the replan-path case (which needs the solver)."""
+    log("K5 checks: float64, tolerance 1e-9 of the largest entry")
+    for T, dx, du in ((19, 3, 2), (130, 2, 1), (2500, 4, 2)):
+        cost, A, B = pscan_problem(T, dx, du, torch.float64, device, seed=T)
+        for lam in (0.0, 0.6):
+            check_k5_case(f"f64 T={T} dx={dx} du={du} lam={lam}", with_lambda(cost, lam),
+                          A, B, 1e-9)
+    # float32: log₂(T+1) levels of Gauss–Jordan inverses in another order
+    # than the reference's; the JAX package's own device tolerance
+    # (tests/test_tpu.py:114-117)
+    log("K5 checks: float32 on the SPD problem of tests/test_tpu.py, tolerance 2e-3")
+    for T in (60, 333, 1000):
+        check_k5_case(f"f32 T={T} dx=4 du=2", *pscan_problem(T, 4, 2, torch.float32, device),
+                      2e-3)
+    cost, A, B = pscan_problem(130, 2, 1, torch.float64, device, non_pd=True)
+    check_k5_case("f64 non-PD Cuu at T/2", cost, A, B, 1e-9)
+
+
+def replan_inputs(env, x0, w):
+    """The replan path's first backward inputs: the expansion of the initial
+    trajectory (zero actions, the solver's first α candidate) and λ = 1."""
+    from trajopt_torch.core.diff import linearize_dynamics_delta, quadratize_cost_delta
+    from trajopt_torch.core.types import LinearPolicy
+    from trajopt_torch.solvers.common import rollout_tracking
+
+    T, dx, du = T_REPLAN, env.dm_state, env.dm_act
+    kw = dict(dtype=x0.dtype, device=x0.device)
+    xref0 = torch.zeros(T + 1, dx, **kw)
+    xref0[0] = x0
+    pol0 = LinearPolicy(K=torch.zeros(T, du, dx, **kw), kff=torch.zeros(T, du, **kw))
+    xs, us, costs = rollout_tracking(env, pol0, 1.0, x0, xref0, torch.zeros(T, du, **kw), w)
+    A, B = linearize_dynamics_delta(env.dynamics, xs[:T], us)
+    cost = quadratize_cost_delta(env.cost, xs, us, w)
+    return with_lambda(cost, 1.0), A, B, costs.sum()
 
 
 def time_cuda(fn, reps):
@@ -410,7 +539,137 @@ def main():
                         "bytes": moved[k], "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                         "gpu": card}))
 
-    # 6. the kernels line, then the device line last
+    # 6. K5 against its plain version
+    from trajopt_torch.core.cuda_pscan import cuda_pilqr_backward, pilqr_backward_plain
+    from trajopt_torch.envs.base import wrap_angle
+    from trajopt_torch.parallel.mpc import make_ilqr_solver, make_mpc_runner
+    from trajopt_torch.solvers.common import make_weighting
+
+    wrappers["K5"] = cuda_pilqr_backward
+    check_k5(dev)
+    pend = trajopt_torch.make("Pendulum-TO-v0", dt=0.05)
+    x0_p = torch.tensor(pend.x0, dtype=torch.float32, device=dev)
+    k5_cost, k5_A, k5_B, ret0 = replan_inputs(
+        pend, x0_p, make_weighting(T_REPLAN, None, device=dev, dtype=torch.float32))
+    errs["K5"] = check_k5_case("f32 replan path T=100 dx=2 du=1 lam=1", k5_cost, k5_A, k5_B,
+                               2e-3)
+
+    # 7. the replan path
+    def replanner(backward, metrics=False):
+        return make_ilqr_solver(pend, T_REPLAN, nb_iter=ITER_REPLAN, backward=backward,
+                                metrics=metrics, device=dev, dtype=torch.float32)
+
+    for w in wrappers.values():
+        w.launches = 0
+    state, m = replanner("cuda-pscan", metrics=True)(x0_p)
+    torch.cuda.synchronize()
+    replan_launches = {k: w.launches for k, w in wrappers.items()}
+    worked = 1 + int((~m.done[:-1]).sum())      # iterations that started not done
+    ret = state.last_return.item()
+    pscan_ret = replanner("pscan")(x0_p)[0].last_return.item()
+    rel = abs(ret - pscan_ret) / abs(pscan_ret)
+    log(json.dumps({"replan_launches": replan_launches, "iterations_worked": worked,
+                    "initial_return": ret0.item(), "final_return_cuda_pscan": ret,
+                    "final_return_pscan": pscan_ret, "rel_diff": rel, "tol": 1e-4}))
+    if replan_launches["K5"] < 2 * worked:
+        fail(f"the replan launched K5 {replan_launches['K5']} times in {worked} iterations")
+    if not math.isfinite(ret) or not ret <= ret0.item():
+        fail(f"replan final return {ret} is not finite or above the initial {ret0.item()}")
+    if not rel <= 1e-4:
+        fail(f"cuda-pscan and pscan replan returns differ by {rel:.3e}")
+
+    # 8. the MPC example path, then the timings of phases 6-8
+    env_mpc = pend.replace(uw=(1e-5,))
+    run_mpc = make_mpc_runner(env_mpc, MPC_HORIZON, MPC_STEPS, nb_iter=MPC_ITER,
+                              backward="cuda-pscan", device=dev, dtype=torch.float32)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    xs, _, _ = run_mpc(x0_p, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    mpc_s = time.perf_counter() - t0
+    mpc_launches = {k: w.launches for k, w in wrappers.items()}
+    th_end = wrap_angle(xs[-1, 0]).abs().item()
+    log(json.dumps({"mpc_launches": mpc_launches, "final_state": xs[-1].tolist(),
+                    "abs_wrapped_theta_end": th_end, "tol": 0.6}))
+    if not bool(torch.isfinite(xs).all()):
+        fail("non-finite MPC states")
+    if not th_end < 0.6:
+        fail(f"MPC ended {th_end:.3f} rad from upright")
+    if mpc_launches["K5"] == 0:
+        fail("the MPC path did not launch K5")
+    log(json.dumps({"metric": "mpc", "config": "Pendulum-TO-v0 dt=0.05 uw=1e-5 horizon=25 "
+                    "steps=100 nb_iter=10 backward=cuda-pscan float32",
+                    "control_steps_per_s": MPC_STEPS / mpc_s, "seconds": mpc_s,
+                    "k5_launches_per_step": mpc_launches["K5"] / MPC_STEPS, "gpu": card}))
+
+    for backward in ("cuda-pscan", "pscan", "scan"):
+        solve = replanner(backward)
+        solve(x0_p)
+        runs = []
+        for _ in range(REPLANS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            solve(x0_p)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        log(json.dumps({"metric": "replan", "backward": backward,
+                        "config": "Pendulum-TO-v0 dt=0.05 T=100 nb_iter=3 batch=1 float32",
+                        "ms_median": sorted(runs)[REPLANS // 2], "ms_runs": runs, "gpu": card}))
+
+    # where a replan's time goes: one cuda-pscan replan under torch.profiler
+    # (whose own overhead lengthens the wall time)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solve = replanner("cuda-pscan")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(x0_p)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    k5_ms = sum(e.self_device_time_total for e in on_device if "pscan_backward" in e.key) / 1e3
+    calls = {name: sum(e.count for e in events if e.key == name)
+             for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
+    top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
+    log(json.dumps({"metric": "replan_profile", "backward": "cuda-pscan", "wall_ms": wall_ms,
+                    "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+                    "k5_device_ms": k5_ms,
+                    "device_events": sum(e.count for e in on_device), "host_calls": calls,
+                    "top_self_cpu_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in top],
+                    "gpu": card}))
+
+    k5_shapes = (("replan path, T=100 dx=2 du=1", (k5_cost, k5_A, k5_B)),
+                 ("SPD problem, T=1000 dx=4 du=2", pscan_problem(1000, 4, 2, torch.float32, dev)))
+    for label, (cost, A, B) in k5_shapes:
+        T, dx, du = A.shape[0], A.shape[-1], B.shape[-1]
+        pol, val, dV = cuda_pilqr_backward(cost, A, B)
+        moved = nbytes(cost.Cxx, cost.cx, cost.Cuu[:T], cost.cu[:T], cost.Cxu[:T], A, B,
+                       pol.K, pol.kff, val.V, val.v, dV)
+        bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+        ops_ms = 1e3 * k5_operations(T, dx, du) / F32_OPS_PER_S
+        row = {
+            "name": "K5 pscan_backward", "route": "cuda",
+            "source": "trajopt_torch/csrc/pscan_backward.cu",
+            "replaces": "trajopt_tpu/core/pallas_pscan.py:266",
+            "launches": replan_launches["K5"], "max_abs_err": errs["K5"],
+            "ms": time_cuda(lambda: cuda_pilqr_backward(cost, A, B), 50),
+            "plain_ms": time_cuda(lambda: pilqr_backward_plain(cost, A, B), 1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # no single PyTorch call computes a parallel Riccati scan
+            "library_ms": None,
+        }
+        log(json.dumps({"metric": "kernel", "shape": label, **row, "bytes": moved,
+                        "bytes_ms": bytes_ms, "ops_ms": ops_ms, "gpu": card}))
+        if T == T_REPLAN:
+            rows.append(row)
+
+    # 9. the kernels line, then the device line last
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

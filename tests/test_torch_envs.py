@@ -126,7 +126,9 @@ def test_linearization_at_saturation_matches(name, kw):
 
 
 def test_registry_and_fields():
-    assert set(trajopt_torch.registered()) == {"Cartpole-TO-v0", "Cartpole-TO-v1"}
+    assert set(trajopt_torch.registered()) == {
+        "Cartpole-TO-v0", "Cartpole-TO-v1", "Pendulum-TO-v0", "Pendulum-TO-v1"
+    }
     for name in trajopt_torch.registered():
         jenv = trajopt_tpu.make(name)
         tenv = trajopt_torch.make(name)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..utils.psd import cholesky
 from .types import LinearPolicy, QuadraticCost, QuadraticQValue, QuadraticValue, symmetrize
 
 
@@ -21,8 +22,7 @@ def _guarded_cholesky(S: Tensor) -> tuple[Tensor, Tensor]:
     """JAX's ``jnp.linalg.cholesky`` contract (a failed factorization is all
     NaN) followed by the scan path's guard: non-finite entries are replaced by
     the identity's, so a failure poisons only the flag, not the carry."""
-    L, info = torch.linalg.cholesky_ex(S)
-    L = torch.where((info != 0)[..., None, None], torch.nan, L)
+    L = cholesky(S)
     finite = torch.isfinite(L)
     eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     return torch.where(finite, L, eye), ~finite.all(dim=(-2, -1))

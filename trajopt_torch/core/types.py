@@ -28,6 +28,18 @@ class QuadraticCost(NamedTuple):
         return self.Cxx.shape[-3]
 
 
+class LinearDynamics(NamedTuple):
+    """Affine dynamics x' = A x + B u + c, stacked over the horizon."""
+
+    A: Tensor  # (T, dx, dx)
+    B: Tensor  # (T, dx, du)
+    c: Tensor  # (T, dx)
+
+    @property
+    def horizon(self) -> int:
+        return self.A.shape[-3]
+
+
 class QuadraticValue(NamedTuple):
     """Quadratic state-value function V(x) = xᵀ V x + vᵀ x + v0."""
 

@@ -2,3 +2,4 @@
 
 from .base import TrajEnv, clip, make, register, registered, wrap_angle  # noqa: F401
 from .cartpole import Cartpole, CartpoleWithCartesianCost  # noqa: F401
+from .pendulum import Pendulum, PendulumWithCartesianCost  # noqa: F401

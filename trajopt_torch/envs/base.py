@@ -18,6 +18,8 @@ from typing import Callable
 import torch
 from torch import Tensor
 
+from ..utils.psd import cholesky
+
 
 class _Clip(torch.autograd.Function):
     """Clamp with JAX's tie rule: ``jnp.clip`` is max/min, whose derivative
@@ -196,6 +198,53 @@ class TrajEnv:
         else:
             c = (u * uw * u).sum(-1)
         return c + self._feature_goal_cost(x, a)
+
+    # -- stochastic interface ------------------------------------------------------
+    @property
+    def sigma(self) -> Tensor:
+        """Process-noise covariance ``sigma_scale·I`` (float64, CPU)."""
+        return self.sigma_scale * torch.eye(self.dm_state, dtype=torch.float64)
+
+    @property
+    def sigma0(self) -> Tensor:
+        """Initial-state covariance ``sigma0_scale·I`` (float64, CPU)."""
+        return self.sigma0_scale * torch.eye(self.dm_state, dtype=torch.float64)
+
+    def noise(self, x: Tensor | None = None, u: Tensor | None = None) -> Tensor:
+        """Process-noise covariance, in ``x``'s dtype and device when given."""
+        return self.sigma if x is None else self.sigma.to(dtype=x.dtype, device=x.device)
+
+    def init(self) -> tuple[Tensor, Tensor]:
+        """Initial-state distribution ``(x0, sigma0)`` (float64, CPU)."""
+        return torch.tensor(self.x0, dtype=torch.float64), self.sigma0
+
+    def sample_init(self, generator: torch.Generator | None = None, *,
+                    dtype: torch.dtype = torch.float32, device="cuda") -> Tensor:
+        """One draw of the initial state, ``x0 + chol(sigma0) z`` with ``z``
+        standard normal from ``generator``."""
+        x0, sigma0 = self.init()
+        x0 = x0.to(dtype=dtype, device=device)
+        return gaussian(x0, sigma0.to(dtype=dtype, device=device), generator)
+
+    def step(self, generator: torch.Generator | None, x: Tensor, u: Tensor,
+             noise: Tensor | None = None) -> Tensor:
+        """Noisy step: ``dynamics(x, u) + chol(sigma) z`` with ``z`` standard
+        normal from ``generator``, or ``dynamics(x, u) + noise`` when the
+        additive noise is handed in (so that tests can feed another
+        generator's draws).  ``x`` may carry leading batch dimensions."""
+        xn = self.dynamics(x, u)
+        if noise is not None:
+            return xn + noise
+        return gaussian(xn, self.noise(x, u), generator)
+
+
+def gaussian(mean: Tensor, cov: Tensor, generator: torch.Generator | None) -> Tensor:
+    """``mean + chol(cov) z`` with ``z`` standard normal of ``mean``'s shape,
+    drawn on the generator's device (the default generator's when None) and
+    moved to ``mean``'s; ``jax.random.multivariate_normal``'s formula."""
+    where = generator.device if generator is not None else mean.device
+    z = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=where)
+    return mean + _matvec(cholesky(cov), z.to(mean.device))
 
 
 # ---------------------------------------------------------------------------------

@@ -25,7 +25,8 @@ def _plain(v):
 
 
 def env_from_fields(env_id: str, fields: dict):
-    """The port's ``env_id`` with the given dataclass fields of the JAX env."""
+    """The port's ``env_id`` (any registered id: Cartpole or Pendulum, v0/v1)
+    with the given dataclass fields of the JAX env."""
     env = make(env_id)
     known = {f.name for f in dataclasses.fields(env)}
     unknown = set(fields) - known
@@ -36,7 +37,9 @@ def env_from_fields(env_id: str, fields: dict):
 
 def ilqr_state_from_numpy(d: dict, *, device="cuda") -> ILQRState:
     """A state given as numpy arrays (keys: the ``ILQRState`` fields) → the
-    port's state on ``device``, dtypes kept (``done`` as bool)."""
+    port's state on ``device``, dtypes and shapes kept (``done`` as bool):
+    unbatched from ``make_ilqr_solver``, batch-leading from
+    ``make_ilqr_solver_batched``."""
     def conv(name):
         t = torch.as_tensor(np.array(d[name]))
         return (t.to(torch.bool) if name == "done" else t).to(device)
