@@ -24,7 +24,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    float64 at (T, dx, du) = (19, 3, 2), (130, 2, 1) and (2500, 4, 2) with
    λ ∈ {0, 0.6}; float32 on the SPD problem of tests/test_tpu.py at
    T ∈ {60, 333, 1000}, dx=4, du=2; a non-PD action Hessian (equal flags,
-   finite outputs); float32 on the replan path's own first backward inputs;
+   finite outputs); float32 on the first backward inputs of the replan path
+   (T=100) and of the MPC path (horizon 25);
 7. the replan path: make_ilqr_solver on Pendulum-TO-v0, dt=0.05, T=100,
    3 iterations, float32, backward="cuda-pscan"; it must launch K5 at least
    twice in every iteration that works, improve on the initial return and
@@ -34,7 +35,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    noise from a seeded generator; finite states, the pendulum upright at the
    end (|wrap(θ)| < 0.6), K5 launched; then the timings of the replan (three
    engines, and one cuda-pscan replan under torch.profiler: device busy time
-   and host calls), of MPC control steps and of K5 per launch at two shapes;
+   and host calls), of MPC control steps and of K5 at two shapes: its device
+   time per launch (torch.profiler) and the wrapper's time per call;
 9. the kernels line (K1-K5) and, last, the device line.
 
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -318,14 +320,17 @@ def check_k5(device):
     check_k5_case("f64 non-PD Cuu at T/2", cost, A, B, 1e-9)
 
 
-def replan_inputs(env, x0, w):
-    """The replan path's first backward inputs: the expansion of the initial
-    trajectory (zero actions, the solver's first α candidate) and λ = 1."""
+def replan_inputs(env, x0, T):
+    """The first backward inputs of a single-problem solve over T steps from
+    ``x0``: the expansion of the initial trajectory (zero actions, the
+    solver's first α candidate; the MPC runner's first warm start is zero
+    too) and λ = 1.  Also returns the initial return."""
     from trajopt_torch.core.diff import linearize_dynamics_delta, quadratize_cost_delta
     from trajopt_torch.core.types import LinearPolicy
-    from trajopt_torch.solvers.common import rollout_tracking
+    from trajopt_torch.solvers.common import make_weighting, rollout_tracking
 
-    T, dx, du = T_REPLAN, env.dm_state, env.dm_act
+    dx, du = env.dm_state, env.dm_act
+    w = make_weighting(T, None, device=x0.device, dtype=x0.dtype)
     kw = dict(dtype=x0.dtype, device=x0.device)
     xref0 = torch.zeros(T + 1, dx, **kw)
     xref0[0] = x0
@@ -347,6 +352,28 @@ def time_cuda(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms_per_launch(fn, reps, kernel):
+    """Device time per launch of the CUDA kernels whose name holds ``kernel``,
+    from torch.profiler over ``reps`` calls of ``fn`` after one warm-up: the
+    mean over the launches the profiler recorded (it may miss a few as it
+    starts), and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if not 0 < count <= reps:
+        fail(f"the profiler saw {count} launches of {kernel} in {reps} calls")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count, count
 
 
 def nbytes(*tensors):
@@ -543,16 +570,17 @@ def main():
     from trajopt_torch.core.cuda_pscan import cuda_pilqr_backward, pilqr_backward_plain
     from trajopt_torch.envs.base import wrap_angle
     from trajopt_torch.parallel.mpc import make_ilqr_solver, make_mpc_runner
-    from trajopt_torch.solvers.common import make_weighting
 
     wrappers["K5"] = cuda_pilqr_backward
     check_k5(dev)
     pend = trajopt_torch.make("Pendulum-TO-v0", dt=0.05)
+    env_mpc = pend.replace(uw=(1e-5,))
     x0_p = torch.tensor(pend.x0, dtype=torch.float32, device=dev)
-    k5_cost, k5_A, k5_B, ret0 = replan_inputs(
-        pend, x0_p, make_weighting(T_REPLAN, None, device=dev, dtype=torch.float32))
+    k5_cost, k5_A, k5_B, ret0 = replan_inputs(pend, x0_p, T_REPLAN)
     errs["K5"] = check_k5_case("f32 replan path T=100 dx=2 du=1 lam=1", k5_cost, k5_A, k5_B,
                                2e-3)
+    check_k5_case(f"f32 MPC path T={MPC_HORIZON} dx=2 du=1 lam=1",
+                  *replan_inputs(env_mpc, x0_p, MPC_HORIZON)[:3], 2e-3)
 
     # 7. the replan path
     def replanner(backward, metrics=False):
@@ -579,7 +607,6 @@ def main():
         fail(f"cuda-pscan and pscan replan returns differ by {rel:.3e}")
 
     # 8. the MPC example path, then the timings of phases 6-8
-    env_mpc = pend.replace(uw=(1e-5,))
     run_mpc = make_mpc_runner(env_mpc, MPC_HORIZON, MPC_STEPS, nb_iter=MPC_ITER,
                               backward="cuda-pscan", device=dev, dtype=torch.float32)
     for w in wrappers.values():
@@ -652,19 +679,25 @@ def main():
                        pol.K, pol.kff, val.V, val.v, dV)
         bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
         ops_ms = 1e3 * k5_operations(T, dx, du) / F32_OPS_PER_S
+        call = lambda: cuda_pilqr_backward(cost, A, B)  # noqa: E731
+        device_ms, profiled = device_ms_per_launch(call, 50, "pscan_backward")
         row = {
             "name": "K5 pscan_backward", "route": "cuda",
             "source": "trajopt_torch/csrc/pscan_backward.cu",
             "replaces": "trajopt_tpu/core/pallas_pscan.py:266",
             "launches": replan_launches["K5"], "max_abs_err": errs["K5"],
-            "ms": time_cuda(lambda: cuda_pilqr_backward(cost, A, B), 50),
+            # the kernel's own device time; a call back to back (call_ms) is
+            # mostly the wrapper's host work at these sizes
+            "ms": device_ms,
+            "call_ms": time_cuda(call, 50),
             "plain_ms": time_cuda(lambda: pilqr_backward_plain(cost, A, B), 1),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             # no single PyTorch call computes a parallel Riccati scan
             "library_ms": None,
         }
-        log(json.dumps({"metric": "kernel", "shape": label, **row, "bytes": moved,
+        log(json.dumps({"metric": "kernel", "shape": label, **row,
+                        "profiled_launches": profiled, "bytes": moved,
                         "bytes_ms": bytes_ms, "ops_ms": ops_ms, "gpu": card}))
         if T == T_REPLAN:
             rows.append(row)

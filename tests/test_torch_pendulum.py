@@ -138,6 +138,18 @@ def test_stochastic_interface_matches():
     np.testing.assert_allclose(x0.numpy(), np.asarray(jenv.x0) + 1e-2 * z0.numpy(), **TOL)
 
 
+def test_noise_factor_is_factored_once():
+    """The noisy step reuses one ``chol(sigma)`` per env, dtype and device;
+    an env with other fields gets its own."""
+    _, tenv = _envs("Pendulum-TO-v0", {"dt": 0.05, "sigma_scale": 3e-2})
+    f64 = tenv.noise_factor(torch.float64, "cpu")
+    np.testing.assert_allclose(f64.numpy(), np.sqrt(3e-2) * np.eye(2), **TOL)
+    assert tenv.noise_factor(torch.float64, torch.device("cpu")) is f64
+    assert tenv.noise_factor(torch.float32, "cpu").dtype == torch.float32
+    other = tenv.replace(sigma_scale=4e-2).noise_factor(torch.float64, "cpu")
+    np.testing.assert_allclose(other.numpy(), 0.2 * np.eye(2), **TOL)
+
+
 def test_unbounded_state_passes_through_clip():
     """xmax = (inf, inf): the state clip changes no value and no derivative."""
     _, tenv = _envs("Pendulum-TO-v0", {})

@@ -96,11 +96,16 @@ def test_k5_plain_matches_pallas_interpret():
     assert cuda_pscan.cuda_pilqr_backward.launches == 0
 
 
-@pytest.mark.parametrize("lmbda", [0.0, 0.6])
-def test_k5_plain_reg_matches_pallas_interpret(lmbda):
+@pytest.mark.parametrize("T,lmbda", [
+    pytest.param(33, 0.0, id="0.0"),
+    pytest.param(33, 0.6, id="0.6"),
+    pytest.param(19, 0.6, id="T19-0.6"),
+])
+def test_k5_plain_reg_matches_pallas_interpret(T, lmbda):
     """At λ = 0 the reference is ``pallas_pilqr_backward`` on the same
-    inputs (``Cuu + 0·I`` is ``Cuu``)."""
-    p, jc, tc = _problem(33, 3, 2)
+    inputs (``Cuu + 0·I`` is ``Cuu``).  T=19 holds a horizon whose T+1
+    positions fill less than one warp of K5's block."""
+    p, jc, tc = _problem(T, 3, 2)
     with jax.disable_jit():
         pol_j, val_j, dV_j, div_j = jax_pallas.pallas_pilqr_backward_reg(
             jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]), lmbda, interpret=True

@@ -4,8 +4,8 @@ Counterpart of ``trajopt_tpu/core/pallas_pscan.py`` (``_pscan_kernel``):
 :func:`cuda_pilqr_backward` and :func:`cuda_pilqr_backward_reg` keep the
 contracts of ``pallas_pilqr_backward`` and ``pallas_pilqr_backward_reg``.  CUDA
 tensors launch ``csrc/pscan_backward.cu``; CPU tensors run
-:func:`pilqr_backward_plain`, which does the kernel's arithmetic in the same
-order with each entry a plane over the T+1 positions.
+:func:`pilqr_backward_plain`, the lane-major pass of ``core.pscan_lqr`` with
+the kernel's Cholesky guard.
 
 The kernel keeps the TPU kernel's own Cholesky guard: a pivot that is not
 positive or not finite becomes 1.  So a non-PD R or Quu gives finite gains and
@@ -22,8 +22,8 @@ import torch
 from torch import Tensor
 
 from ..kernels import _build
-from .cuda_lqr import _chol, _chol_solve
-from .pscan_lqr import RiccatiElement, _lmm, _lmv, _lt, suffix_scan_lanes
+from .cuda_lqr import _chol
+from .pscan_lqr import delta_backward, suffix_scan_lanes
 from .types import LinearPolicy, QuadraticCost, QuadraticValue
 
 # --------------------------------------------------------------------------------------
@@ -31,88 +31,25 @@ from .types import LinearPolicy, QuadraticCost, QuadraticValue
 # --------------------------------------------------------------------------------------
 
 
-def _planes(X: Tensor):
-    """``(n, r, c)`` → rows of ``(n,)`` planes."""
-    return [[X[:, i, j] for j in range(X.shape[2])] for i in range(X.shape[1])]
-
-
-def _matrix(P) -> Tensor:
-    """Rows of ``(n,)`` planes → ``(n, r, c)``."""
-    return torch.stack([torch.stack(row, dim=-1) for row in P], dim=-2)
+def _guarded_cholesky(S: Tensor) -> Tensor:
+    """Lower Cholesky factor of each matrix of ``S (..., n, n)`` with the
+    kernel's guard (``cuda_lqr._chol``): a pivot that is not positive or not
+    finite becomes 1, so the factor stays finite."""
+    n = S.shape[-1]
+    L, _, _ = _chol(S.reshape(-1, n, n))
+    zero = torch.zeros_like(L[0][0])
+    rows = [torch.stack([L[i][j] if j <= i else zero for j in range(n)], dim=-1)
+            for i in range(n)]
+    return torch.stack(rows, dim=-2).reshape(S.shape)
 
 
 def pilqr_backward_plain(
     cost: QuadraticCost, A: Tensor, B: Tensor
 ) -> tuple[LinearPolicy, QuadraticValue, Tensor]:
-    """K5's plain version: ``pallas_pscan._pscan_compute`` over planes of the
-    T+1 positions, with the kernel's Cholesky guard."""
-    T, dx, du = A.shape[0], A.shape[-1], B.shape[-1]
-    n = T + 1
-    kw = dict(dtype=A.dtype, device=A.device)
-    # the input streams hold R = I, A = I and B = M = r = 0 at position T
-    R = torch.cat([cost.Cuu[:T], torch.eye(du, **kw)[None]])
-    r = torch.cat([cost.cu[:T], torch.zeros(1, du, **kw)])
-    M = torch.cat([cost.Cxu[:T], torch.zeros(1, dx, du, **kw)])
-    F = torch.cat([A, torch.eye(dx, **kw)[None]])
-    L = torch.cat([B, torch.zeros(1, dx, du, **kw)])
-    Qp, qp = _planes(cost.Cxx[:n]), list(cost.cx[:n].T)
-    Mp, Fp, Lp = _planes(M), _planes(F), _planes(L)
-
-    # ---- elements (pscan_lqr.make_elements, c = 0) ----------------------------
-    Lr, inv_d, _ = _chol(R)
-    RiMt = _planes(_chol_solve(Lr, inv_d, M.mT))          # R⁻¹Mᵀ (du, dx)
-    Rir = list(_chol_solve(Lr, inv_d, r[:, :, None])[:, :, 0].T)
-    RiLt = _planes(_chol_solve(Lr, inv_d, L.mT))          # R⁻¹Lᵀ (du, dx)
-
-    LRiMt = _lmm(Lp, RiMt)
-    A_el = [[Fp[i][j] - LRiMt[i][j] for j in range(dx)] for i in range(dx)]
-    b_el = [-e for e in _lmv(Lp, Rir)]
-    C_el = _lmm(Lp, RiLt)
-    C_el = [[0.5 * (C_el[i][j] + C_el[j][i]) for j in range(dx)] for i in range(dx)]
-    MRiMt = _lmm(Mp, RiMt)
-    J_el = [[Qp[i][j] - MRiMt[i][j] for j in range(dx)] for i in range(dx)]
-    MRir = _lmv(Mp, Rir)
-    eta_el = [-(qp[i] - MRir[i]) for i in range(dx)]
-
-    # position T holds the terminal element (A = b = C = 0, η = −q_T, J = Q_T)
-    term = torch.arange(n, device=A.device) == T
-    zero = torch.zeros(n, **kw)
-    for i in range(dx):
-        for j in range(dx):
-            A_el[i][j] = torch.where(term, zero, A_el[i][j])
-            C_el[i][j] = torch.where(term, zero, C_el[i][j])
-            J_el[i][j] = torch.where(term, Qp[i][j], J_el[i][j])
-        b_el[i] = torch.where(term, zero, b_el[i])
-        eta_el[i] = torch.where(term, -qp[i], eta_el[i])
-
-    # ---- suffix scan: S_t ← S_t ⊗ S_{t+d}; a partner past T is the identity ----
-    S_m, s_m = suffix_scan_lanes(RiccatiElement(
-        A=_matrix(A_el), b=torch.stack(b_el, dim=-1), C=_matrix(C_el),
-        eta=torch.stack(eta_el, dim=-1), J=_matrix(J_el),
-    ))
-
-    # ---- gains for t < T from the value at t + 1 (pallas_pscan.py:228-256) -----
-    Sn, sn = _planes(S_m[1:]), list(s_m[1:].T)
-    Rp, rp = _planes(R[:T]), list(r[:T].T)
-    Mt, Ft, Lt = _planes(M[:T]), _planes(F[:T]), _planes(L[:T])
-    LtS = _lmm(_lt(Lt), Sn)                                # LᵀS' (du, dx)
-    Quu = [[Rp[i][j] + sum(LtS[i][k] * Lt[k][j] for k in range(dx))
-            for j in range(du)] for i in range(du)]
-    Lq, inv_q, _ = _chol(_matrix(Quu))
-    rhs_K = [[sum(LtS[i][k] * Ft[k][j] for k in range(dx)) + Mt[j][i]
-              for j in range(dx)] for i in range(du)]
-    K = -_chol_solve(Lq, inv_q, _matrix(rhs_K))
-    Lts = _lmv(_lt(Lt), sn)
-    kff_m = -_chol_solve(Lq, inv_q, _matrix([[Lts[i] + rp[i]] for i in range(du)]))
-    kff = list(kff_m[:, :, 0].T)
-
-    qu = [rp[i] + Lts[i] for i in range(du)]
-    dv0 = sum(kff[i] * qu[i] for i in range(du))
-    Quu_kff = _lmv(Quu, kff)
-    dv1 = 0.5 * sum(kff[i] * Quu_kff[i] for i in range(du))
-    dV = torch.stack([dv0.sum(), dv1.sum()])
-    value = QuadraticValue(V=S_m, v=s_m, v0=torch.zeros(n, **kw))
-    return LinearPolicy(K=K, kff=kff_m[:, :, 0]), value, dV
+    """K5's plain version: the lane-major pass of ``core.pscan_lqr`` (partial
+    pivoting Gauss–Jordan combine, K5's doubling schedule) with the kernel's
+    Cholesky guard in place of the NaN contract."""
+    return delta_backward(cost, A, B, suffix_scan_lanes, factor=_guarded_cholesky)
 
 
 # --------------------------------------------------------------------------------------

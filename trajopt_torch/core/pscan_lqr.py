@@ -20,7 +20,9 @@ Elements compose in the ½-convention quadratic model
 λ = 0, and :func:`pilqr_backward_reg` folds λ into the action Hessian (the
 ``backward="pscan"`` engine of ``parallel.mpc.make_ilqr_solver``).  Cholesky
 failures give NaN (``utils.psd.cholesky``), so a non-PD action Hessian shows
-up in the divergence flag of :func:`pilqr_backward_reg`.
+up in the divergence flag of :func:`pilqr_backward_reg`.  The element, gain
+and dV code takes the factorization as an argument: K5's plain version
+(``cuda_pscan.pilqr_backward_plain``) passes the kernel's guarded one.
 """
 
 from __future__ import annotations
@@ -66,11 +68,12 @@ def combine(e1: RiccatiElement, e2: RiccatiElement) -> RiccatiElement:
 
 def make_elements(
     Q: Tensor, q: Tensor, R: Tensor, r: Tensor, M: Tensor,
-    F: Tensor, L: Tensor, c: Tensor, Q_T: Tensor, q_T: Tensor,
+    F: Tensor, L: Tensor, c: Tensor, Q_T: Tensor, q_T: Tensor, factor=cholesky,
 ) -> RiccatiElement:
     """Per-step elements of the ½-convention model plus the terminal element:
-    stacked elements of length T+1, terminal last."""
-    chol_R = cholesky(symmetrize(R))
+    stacked elements of length T+1, terminal last.  ``factor`` gives the lower
+    Cholesky factor of R."""
+    chol_R = factor(symmetrize(R))
     RiM = chol_solve(chol_R, M.mT)     # R⁻¹ Mᵀ
     Rir = chol_solve(chol_R, r)        # R⁻¹ r
     RiL = chol_solve(chol_R, L.mT)     # R⁻¹ Lᵀ
@@ -123,11 +126,11 @@ def suffix_scan(elements: RiccatiElement) -> RiccatiElement:
     return _doubling_suffix(elements, combine, ident, dim=0)
 
 
-def _gains(R, r, M, F, L, c, S_next, s_next):
+def _gains(R, r, M, F, L, c, S_next, s_next, factor=cholesky):
     """Per-step feedback and feedforward from the next step's ½-model value,
     batched over time."""
     Quu = R + L.mT @ S_next @ L
-    chol = cholesky(symmetrize(Quu))
+    chol = factor(symmetrize(Quu))
     K = -chol_solve(chol, L.mT @ S_next @ F + M.mT)
     kff = -chol_solve(chol, _mv(L.mT, _mv(S_next, c) + s_next) + r)
     return K, kff
@@ -161,16 +164,17 @@ def priccati_backward(
     return LinearPolicy(K=K, kff=kff), value
 
 
-def _delta_backward(cost: QuadraticCost, A: Tensor, B: Tensor, suffix):
-    """The delta-convention (λ = 0) backward pass on a given suffix scan."""
+def delta_backward(cost: QuadraticCost, A: Tensor, B: Tensor, suffix, factor=cholesky):
+    """The delta-convention (λ = 0) backward pass on a given suffix scan and
+    Cholesky factorization."""
     T = A.shape[0]
     c = torch.zeros(T, A.shape[-1], dtype=A.dtype, device=A.device)
     Q, q = cost.Cxx[:T], cost.cx[:T]
     R, r = cost.Cuu[:T], cost.cu[:T]
     M = cost.Cxu[:T]
 
-    S, s = suffix(make_elements(Q, q, R, r, M, A, B, c, cost.Cxx[T], cost.cx[T]))
-    K, kff = _gains(R, r, M, A, B, c, S[1:], s[1:])
+    S, s = suffix(make_elements(Q, q, R, r, M, A, B, c, cost.Cxx[T], cost.cx[T], factor))
+    K, kff = _gains(R, r, M, A, B, c, S[1:], s[1:], factor)
     dV = _dv(kff, R, r, B, S[1:], s[1:])
     value = QuadraticValue(V=S, v=s, v0=torch.zeros(T + 1, dtype=S.dtype, device=S.device))
     return LinearPolicy(K=K, kff=kff), value, dV
@@ -185,7 +189,7 @@ def pilqr_backward(
         suf = suffix_scan(els)
         return suf.J, -suf.eta
 
-    return _delta_backward(cost, A, B, suffix)
+    return delta_backward(cost, A, B, suffix)
 
 
 # --------------------------------------------------------------------------------------
@@ -326,7 +330,7 @@ def pilqr_backward_lanes(
     cost: QuadraticCost, A: Tensor, B: Tensor
 ) -> tuple[LinearPolicy, QuadraticValue, Tensor]:
     """Lane-major counterpart of :func:`pilqr_backward` (same contract)."""
-    return _delta_backward(cost, A, B, suffix_scan_lanes)
+    return delta_backward(cost, A, B, suffix_scan_lanes)
 
 
 def pilqr_backward_reg(

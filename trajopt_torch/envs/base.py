@@ -11,6 +11,7 @@ once more as device functions (``csrc/envs.cuh``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -214,6 +215,11 @@ class TrajEnv:
         """Process-noise covariance, in ``x``'s dtype and device when given."""
         return self.sigma if x is None else self.sigma.to(dtype=x.dtype, device=x.device)
 
+    def noise_factor(self, dtype: torch.dtype, device) -> Tensor:
+        """``chol(noise())`` in ``dtype`` on ``device``, factored once per env,
+        dtype and device (the covariance depends on neither x nor u)."""
+        return _noise_factor(self, dtype, torch.device(device))
+
     def init(self) -> tuple[Tensor, Tensor]:
         """Initial-state distribution ``(x0, sigma0)`` (float64, CPU)."""
         return torch.tensor(self.x0, dtype=torch.float64), self.sigma0
@@ -224,7 +230,7 @@ class TrajEnv:
         standard normal from ``generator``."""
         x0, sigma0 = self.init()
         x0 = x0.to(dtype=dtype, device=device)
-        return gaussian(x0, sigma0.to(dtype=dtype, device=device), generator)
+        return gaussian(x0, cholesky(sigma0.to(dtype=dtype, device=device)), generator)
 
     def step(self, generator: torch.Generator | None, x: Tensor, u: Tensor,
              noise: Tensor | None = None) -> Tensor:
@@ -235,16 +241,22 @@ class TrajEnv:
         xn = self.dynamics(x, u)
         if noise is not None:
             return xn + noise
-        return gaussian(xn, self.noise(x, u), generator)
+        return gaussian(xn, self.noise_factor(x.dtype, x.device), generator)
 
 
-def gaussian(mean: Tensor, cov: Tensor, generator: torch.Generator | None) -> Tensor:
-    """``mean + chol(cov) z`` with ``z`` standard normal of ``mean``'s shape,
-    drawn on the generator's device (the default generator's when None) and
-    moved to ``mean``'s; ``jax.random.multivariate_normal``'s formula."""
+@functools.lru_cache(maxsize=None)
+def _noise_factor(env: TrajEnv, dtype: torch.dtype, device: torch.device) -> Tensor:
+    return cholesky(env.noise().to(dtype=dtype, device=device))
+
+
+def gaussian(mean: Tensor, chol: Tensor, generator: torch.Generator | None) -> Tensor:
+    """``mean + chol z`` with ``chol`` the covariance's lower Cholesky factor
+    and ``z`` standard normal of ``mean``'s shape, drawn on the generator's
+    device (the default generator's when None) and moved to ``mean``'s;
+    ``jax.random.multivariate_normal``'s formula."""
     where = generator.device if generator is not None else mean.device
     z = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=where)
-    return mean + _matvec(cholesky(cov), z.to(mean.device))
+    return mean + _matvec(chol, z.to(mean.device))
 
 
 # ---------------------------------------------------------------------------------

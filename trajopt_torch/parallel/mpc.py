@@ -640,7 +640,7 @@ def run_mpc_batch(
     kw = dict(dtype=dtype, device=_resolve(device))
     x0s = torch.stack([env.sample_init(generator, **kw) for _ in range(nb_episodes)])
     zero = torch.zeros(nb_episodes, nb_steps, env.dm_state, **kw)
-    noise = gaussian(zero, env.noise(zero), generator)
+    noise = gaussian(zero, env.noise_factor(dtype, zero.device), generator)
     if batched:
         run = make_mpc_runner_batched(env, horizon, nb_steps, nb_iter=nb_iter,
                                       backward=backward, **kw, **ilqr_kwargs)
