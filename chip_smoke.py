@@ -37,7 +37,23 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    engines, and one cuda-pscan replan under torch.profiler: device busy time
    and host calls), of MPC control steps and of K5 at two shapes: its device
    time per launch (torch.profiler) and the wrapper's time per call;
-9. the kernels line (K1-K5) and, last, the device line.
+9. kernels K6 and K7 (the GPS dual chain) against their plain versions:
+   float64 at N=50, T=48 for (dx, du) = (2, 1) and (4, 2) with
+   α ∈ {1e-16, 1, 1e16}; a non-PD −Quu (equal flags, finite outputs);
+   float32 at the dual chain's benchmark shape (T=1000, N=4096, dx=4, du=2,
+   α=10) and on the solver path's first dual operands;
+10. the GPS solver path: make_mbgps_solver_batched on Pendulum-TO-v0,
+   dt=0.05, T=100, N=4096, 10 iterations of 64 bisection steps, float32,
+   engine="cuda"; exactly 640 launches each of K6 and K7, finite traces, no
+   final return above its initial one, and the scan engine on the first 64
+   instances for 3 iterations within rtol/atol 1e-4; ms per outer iteration
+   and per dual evaluation, and a torch.profiler split of one iteration;
+11. the GPS-MPC farm: run_gps_mpc_batch (batched, engine="cuda") on
+   Pendulum-TO-v0, 50 episodes, horizon 20, 50 steps, 3 iterations; finite
+   costs, the first 4 episodes' first 5 steps against the scan engine on the
+   same draws; control steps/s; then K6/K7's times at the solver path's and
+   the benchmark's shapes;
+12. the kernels line (K1-K7) and, last, the device line.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 package beside it.
@@ -76,18 +92,36 @@ OPS_PER_STEP = {"K1": 2030, "K2": 192, "K3": 192, "K4": 520}
 T_REPLAN, ITER_REPLAN, REPLANS = 100, 3, 5
 MPC_HORIZON, MPC_STEPS, MPC_ITER = 25, 100, 10
 
+# The GPS paths: the batched swing-up solver at the GPS example's horizon
+# (BASELINE.md:18) over 4096 instances, held against the scan engine on its
+# first 64 for 3 iterations; the GPS-MPC farm of
+# examples/gps/analytical/mpc/mb_pendulum_parallel.py (50 jobs), held against
+# the scan engine on 4 episodes for 5 steps; the dual chain's benchmark shape
+# (bench.py's gps_dual_eval_tps row: T=1000, batch 4096, dx=4, du=2).
+GPS_KW = dict(kl_bound=2.0, action_penalty=1e-5)
+T_GPS, N_GPS, GPS_ITER, GPS_BISECT = 100, 4096, 10, 64
+N_GPS_SCAN, GPS_ITER_SCAN = 64, 3
+GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS, GPS_MPC_ITER = 50, 20, 50, 3
+GPS_MPC_CHECK_EPISODES, GPS_MPC_CHECK_STEPS = 4, 5
+T_DUAL, N_DUAL = 1000, 4096
+
+
+def _mm_ops(n, k, m):
+    """Operations of an (n, k) by (k, m) product."""
+    return n * m * (2 * k - 1)
+
+
+def _chol_ops(n):
+    """Operations of an n×n Cholesky factorization with its guard."""
+    return sum(2 * j + 5 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+
 
 def k5_operations(T, dx, du):
     """Operations of one K5 call, counted from csrc/pscan_backward.cu (one per
     add, multiply, divide, compare, select, square root or negation): the
     element of each of the T steps, ⌈log₂(T+1)⌉ levels of T+1 combines, the
     gains and dV of each step."""
-    def mm(n, k, m):
-        return n * m * (2 * k - 1)
-
-    def chol(n):
-        return sum(2 * j + 5 + (n - 1 - j) * (2 * j + 1) for j in range(n))
-
+    mm, chol = _mm_ops, _chol_ops
     solve = 2 * du * du
     gj = sum(3 * (dx - 1 - k) + 4 * dx * (dx - 1 - k) + 1 + 2 * dx + 4 * dx * (dx - 1)
              for k in range(dx))
@@ -358,7 +392,8 @@ def device_ms_per_launch(fn, reps, kernel):
     """Device time per launch of the CUDA kernels whose name holds ``kernel``,
     from torch.profiler over ``reps`` calls of ``fn`` after one warm-up: the
     mean over the launches the profiler recorded (it may miss a few as it
-    starts), and their count."""
+    starts), and their count.  Used for K5, whose wrapper launches small
+    copies beside its kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -376,8 +411,441 @@ def device_ms_per_launch(fn, reps, kernel):
     return sum(e.self_device_time_total for e in hits) / 1e3 / count, count
 
 
+def device_ms_back_to_back(fn, reps):
+    """Device time per call of ``fn`` with its launches queued back to back:
+    a sleep kernel holds the stream while the host enqueues ``reps`` calls, so
+    the CUDA events bracket the device's work alone and not the host's time
+    between launches.  Used for K6/K7, whose wrappers launch nothing but the
+    kernel (the profiler recorded only 1-2 of 20 of their launches).  Returns
+    (ms per call, the host's enqueue ms, the sleep's ms)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s0.record()
+    torch.cuda._sleep(int(2e8))
+    s1.record()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    sleep_ms = s0.elapsed_time(s1)
+    if enqueue_ms >= sleep_ms:
+        fail(f"the host took {enqueue_ms:.1f} ms to enqueue, longer than the "
+             f"{sleep_ms:.1f} ms sleep: the launches did not queue back to back")
+    return start.elapsed_time(end) / reps, enqueue_ms, sleep_ms
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# --------------------------------------------------------------------------------------
+# GPS: kernels K6 and K7, the batched solver, the GPS-MPC farm
+# --------------------------------------------------------------------------------------
+
+
+def k6_operations(T, dx, du):
+    """Operations of one K6 launch, counted from csrc/gps.cu (one per add,
+    multiply, divide, compare, square root or log): per step, the KL
+    augmentation (a du×du Cholesky, its inverse, the old policy's products),
+    the Q blocks, the factor of −Quu with its solves, and the value update."""
+    mv = lambda n, k: _mm_ops(n, k, 1)  # noqa: E731
+    dot = lambda n: 2 * n - 1  # noqa: E731
+    solve, inv = 2 * du * du, 2 * du ** 3
+    augment = (2 * du * du + _chol_ops(du) + inv + 2 * du + _mm_ops(du, du, dx) + mv(du, du)
+               + _mm_ops(dx, du, dx) + mv(dx, du) + 2 * dx * dx + 2 * dx * du + 2 * dx
+               + 2 * du * du + 2 * du + dot(du) + 6)
+    q = (2 * _mm_ops(dx, dx, dx) + 2 * _mm_ops(dx, dx, du) + _mm_ops(du, dx, du) + mv(dx, dx)
+         + 2 * dx * dx + 2 * dx * du + 2 * du * du + 2 * mv(du, dx) + 2 * mv(dx, dx)
+         + 4 * du + 4 * dx + 2 * dot(dx) + 2 * dx * dx + 5)
+    policy = 3 * du * du + _chol_ops(du) + (dx + 1) * solve + du + inv + du * du + 2
+    value = _mm_ops(dx, du, dx) + 4 * dx * dx + mv(dx, du) + 3 * dx + 2 * du + dot(du) + 8
+    return T * (augment + q + policy + value)
+
+
+def k7_operations(T, dx, du):
+    """Operations of one K7 launch, counted from csrc/gps.cu: per step, the
+    policy KL (two du×du Cholesky factors, one inverse, the gain-difference
+    products) and the propagation of (μ, Σ)."""
+    mv = lambda n, k: _mm_ops(n, k, 1)  # noqa: E731
+    kl = (4 * du * du + 2 * _chol_ops(du) + 2 * du ** 3 + dx * du + du + _mm_ops(du, du, dx)
+          + _mm_ops(dx, du, dx) + mv(du, du) + mv(dx, du) + mv(dx, dx) + 4 * du
+          + 2 * du * du + 2 * dx * dx + 4 * dx + 2 * du + 12)
+    prop = (mv(du, dx) + du + _mm_ops(du, dx, dx) + _mm_ops(du, dx, du) + du * du + mv(dx, dx)
+            + mv(dx, du) + 2 * _mm_ops(dx, dx, dx) + _mm_ops(dx, dx, du)
+            + 2 * _mm_ops(dx, du, dx) + _mm_ops(dx, du, du) + 2 * dx + 6 * dx * dx)
+    return T * (kl + prop)
+
+
+def gps_problem(N, T, dx, du, seed, dtype, device, alphas, non_pd_at=None):
+    """Random dual-chain operands made with numpy (the recipe of
+    tests/test_torch_gps_kernels.py): SPD cost, noise and old-policy
+    covariance blocks, a contracting A; α per instance from ``alphas`` in
+    turn; with ``non_pd_at``, an action cost of −50·I at that step makes −Quu
+    indefinite.  Returns (cost, dyn, old, α, μ₀, Σ₀), batch-leading."""
+    from trajopt_torch.core.types import (
+        LinearGaussianDynamics,
+        LinearGaussianPolicy,
+        QuadraticCost,
+    )
+
+    rng = np.random.default_rng(seed)
+
+    def spd(d, n, s=1.0):
+        M = rng.standard_normal((N, n, d, d))
+        return s * (np.einsum("bnij,bnkj->bnik", M, M) + d * np.eye(d))
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    Cuu = spd(du, T + 1)
+    if non_pd_at is not None:
+        Cuu[:, non_pd_at] = -50.0 * np.eye(du)
+    cost = QuadraticCost(t(spd(dx, T + 1)), t(rng.standard_normal((N, T + 1, dx))), t(Cuu),
+                         t(rng.standard_normal((N, T + 1, du))),
+                         t(0.1 * rng.standard_normal((N, T + 1, dx, du))),
+                         t(0.1 * rng.standard_normal((N, T + 1))))
+    dyn = LinearGaussianDynamics(t(0.9 * (np.eye(dx) + 0.1 * rng.standard_normal((N, T, dx, dx)))),
+                                 t(0.5 * rng.standard_normal((N, T, dx, du))),
+                                 t(0.1 * rng.standard_normal((N, T, dx))), t(spd(dx, T, 0.01)))
+    old = LinearGaussianPolicy(t(0.1 * rng.standard_normal((N, T, du, dx))),
+                               t(0.1 * rng.standard_normal((N, T, du))), t(spd(du, T, 0.5)))
+    alpha = t(np.asarray(alphas)[np.arange(N) % len(alphas)][:, None] * np.ones((1, T)))
+    return cost, dyn, old, alpha, t(rng.standard_normal((N, dx))), t(spd(dx, 1, 0.1)[:, 0])
+
+
+def gps_dual_operands(T, dx, du, N, device):
+    """float32 operands built the way bench.py::_gps_dual_operands builds them:
+    one instance of bench.py's ``_problem`` (numpy, seed 0) broadcast over the
+    batch, cx decorrelated by 0.01·N(0, 1), Σ_dyn = 1e-4·I, the old policy's
+    K and kff 0.1·N(0, 1) with Σ = I, μ₀ = 0, Σ₀ = 0.1·I; the batch draws come
+    from a seeded torch generator where the bench draws with JAX."""
+    from trajopt_torch.core.types import (
+        LinearGaussianDynamics,
+        LinearGaussianPolicy,
+        QuadraticCost,
+    )
+
+    rng = np.random.default_rng(0)
+
+    def spd(d, n):
+        M = rng.standard_normal((n, d, d))
+        return np.einsum("nij,nkj->nik", M, M) + d * np.eye(d)
+
+    A = 0.97 * (np.eye(dx) + 0.05 * rng.standard_normal((T, dx, dx)))
+    B = 0.1 * rng.standard_normal((T, dx, du))
+    one = dict(A=A, B=B, Cxx=spd(dx, T + 1), cx=rng.standard_normal((T + 1, dx)),
+               Cuu=spd(du, T + 1), cu=rng.standard_normal((T + 1, du)),
+               Cxu=0.1 * rng.standard_normal((T + 1, dx, du)), c0=np.zeros(T + 1),
+               c=0.01 * rng.standard_normal((T, dx)))
+    kw = dict(dtype=torch.float32, device=device)
+    b = {k: torch.as_tensor(v, **kw).expand(N, *v.shape).contiguous() for k, v in one.items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, **kw)
+
+    cost = QuadraticCost(b["Cxx"], b["cx"] + 0.01 * normal(N, T + 1, dx), b["Cuu"], b["cu"],
+                         b["Cxu"], b["c0"])
+    dyn = LinearGaussianDynamics(b["A"], b["B"], b["c"],
+                                 (1e-4 * torch.eye(dx, **kw)).expand(N, T, dx, dx))
+    old = LinearGaussianPolicy(0.1 * normal(N, T, du, dx), 0.1 * normal(N, T, du),
+                               torch.eye(du, **kw).expand(N, T, du, du))
+    return (cost, dyn, old, torch.full((N, T), 10.0, **kw), torch.zeros(N, dx, **kw),
+            (0.1 * torch.eye(dx, **kw)).expand(N, dx, dx))
+
+
+def check_gps_case(label, packed, alpha_l, tol):
+    """K6 and K7 against their plain versions on the same packed operands
+    (K7 on K6's controller); returns the max abs error of K6's gains and of
+    K7's KL sum."""
+    from trajopt_torch.core import cuda_gps
+
+    k6 = cuda_gps.cuda_gps_backward_packed(packed, alpha_l)
+    p6 = cuda_gps.gps_backward_plain(packed, alpha_l)
+    k7 = cuda_gps.cuda_gps_forward_kl_packed(packed, *k6[:3])
+    p7 = cuda_gps.gps_forward_kl_plain(packed, *k6[:3])
+    torch.cuda.synchronize()
+    errs = [errors(f"K6 {label} {name}", a, b, tol)
+            for name, a, b in zip(("K", "kff", "sigma_ctl", "V0", "v0", "c0"), k6, p6)]
+    same_flags(f"K6 {label} bad", k6[6], p6[6])
+    errs7 = [errors(f"K7 {label} {name}", a, b, tol)
+             for name, a, b in zip(("kl_sum", "muT", "sigmaT"), k7, p7)]
+    return errs[0], errs7[0], k6[6]
+
+
+def check_gps_kernels(device):
+    """K6/K7 against their plain versions: float64 with α spanning the
+    bisection's box, a divergence case, float32 at the benchmark shape."""
+    from trajopt_torch.core.cuda_gps import pack_gps, pack_gps_alpha
+
+    # float64: the kernels and the plain versions do the same IEEE operations
+    # in the same order (-fmad=false), so they agree to rounding even at
+    # α = 1e16, where V is mostly cancellation
+    log("K6/K7 checks: float64, N=50, T=48, α ∈ {1e-16, 1, 1e16}, tolerance 1e-12")
+    for dx, du in ((2, 1), (4, 2)):
+        cost, dyn, old, alpha, mu0, sig0 = gps_problem(50, 48, dx, du, 7, torch.float64, device,
+                                                       (1e-16, 1.0, 1e16))
+        _, _, bad = check_gps_case(f"f64 dx={dx} du={du}", pack_gps(cost, dyn, old, mu0, sig0),
+                                   pack_gps_alpha(alpha), 1e-12)
+        if bool(bad.any()):
+            fail(f"K6 flagged {int(bad.sum())} instances of a positive-definite problem")
+    # −Quu indefinite at t = 1: the guard (a bad pivot becomes 1) keeps the
+    # outputs finite (errors() fails on a non-finite one) and the flag is set
+    for dx, du in ((2, 1), (4, 2)):
+        cost, dyn, old, alpha, mu0, sig0 = gps_problem(50, 48, dx, du, 8, torch.float64, device,
+                                                       (1.0,), non_pd_at=1)
+        _, _, bad = check_gps_case(f"f64 non-PD dx={dx} du={du}",
+                                   pack_gps(cost, dyn, old, mu0, sig0), pack_gps_alpha(alpha),
+                                   1e-12)
+        if not bool(bad.any()):
+            fail(f"K6 flagged no instance with −Quu indefinite (dx={dx} du={du})")
+    # float32 at the dual chain's benchmark shape: the same operations in the
+    # same order as the plain version; 1e-4 of the largest entry, the f32
+    # tolerance of K1-K4 over T=1000
+    log(f"K6/K7 checks: float32, T={T_DUAL}, N={N_DUAL}, dx=4, du=2, α=10, tolerance 1e-4")
+    cost, dyn, old, alpha, mu0, sig0 = gps_dual_operands(T_DUAL, 4, 2, N_DUAL, device)
+    packed, alpha_l = pack_gps(cost, dyn, old, mu0, sig0), pack_gps_alpha(alpha)
+    errs = check_gps_case(f"f32 T={T_DUAL} dx=4 du=2", packed, alpha_l, 1e-4)[:2]
+    return packed, alpha_l, errs
+
+
+def gps_kernel_rows(label, packed, alpha_l, launches, errs, card):
+    """Device time per launch (back to back), the wrappers' time per call,
+    the plain versions' time, bytes and bound of K6 and K7 on ``packed``."""
+    from trajopt_torch.core import cuda_gps
+
+    T, dx, N = packed["cx"].shape
+    du = packed["cu"].shape[1]
+    k6 = cuda_gps.cuda_gps_backward_packed(packed, alpha_l)
+    k7 = cuda_gps.cuda_gps_forward_kl_packed(packed, *k6[:3])
+    ins6 = [packed[k] for k in ("cxx", "cx", "cuu", "cu", "cxu", "c0", "A", "B", "c", "sigd", "Ko",
+                                "ko", "sigo", "vT", "vvT", "v0T")] + [alpha_l]
+    ins7 = [packed[k] for k in ("A", "B", "c", "sigd", "Ko", "ko", "sigo", "mu0", "sig0")]
+    specs = {
+        "K6": ("K6 gps_backward", "trajopt_tpu/core/pallas_gps.py:82",
+               nbytes(*ins6, *k6), k6_operations(T, dx, du),
+               lambda: cuda_gps.cuda_gps_backward_packed(packed, alpha_l),
+               lambda: cuda_gps.gps_backward_plain(packed, alpha_l)),
+        "K7": ("K7 gps_forward_kl", "trajopt_tpu/core/pallas_gps.py:205",
+               nbytes(*ins7, *k6[:3], *k7), k7_operations(T, dx, du),
+               lambda: cuda_gps.cuda_gps_forward_kl_packed(packed, *k6[:3]),
+               lambda: cuda_gps.gps_forward_kl_plain(packed, *k6[:3])),
+    }
+    rows = {}
+    for key, (name, replaces, moved, ops, call, plain) in specs.items():
+        device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 20)
+        bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / F32_OPS_PER_S
+        row = {
+            "name": name, "route": "cuda", "source": "trajopt_torch/csrc/gps.cu",
+            "replaces": replaces, "launches": launches[key], "max_abs_err": errs[key],
+            # the kernel's own device time; call_ms adds the wrapper's host work
+            "ms": device_ms, "call_ms": time_cuda(call, 20), "plain_ms": time_cuda(plain, 1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # no single PyTorch call computes a soft-Riccati recursion or a
+            # Gaussian propagation under a linear-Gaussian controller
+            "library_ms": None,
+        }
+        log(json.dumps({"metric": "kernel", "shape": f"{label}, T={T} N={N} dx={dx} du={du}",
+                        **row, "enqueue_ms_per_call": enqueue_ms / 20, "bytes": moved,
+                        "operations": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                        "gpu": card}))
+        rows[key] = row
+    return rows
+
+
+def gps_solver_phase(device, card, wrappers):
+    """The solver path: make_mbgps_solver_batched with engine="cuda" at full
+    width; launch counts, finite traces no higher at the end than at the
+    start, the scan engine on the first instances; then its timings and a
+    torch.profiler split of one outer iteration."""
+    import trajopt_torch
+    from trajopt_torch.core.cuda_gps import pack_gps, pack_gps_alpha
+    from trajopt_torch.parallel.gps import make_mbgps_solver_batched
+
+    env = trajopt_torch.make("Pendulum-TO-v0", dt=0.05)
+    kw = dict(dtype=torch.float32, device=device)
+    rng = np.random.default_rng(5)
+    mu0s = torch.as_tensor(np.asarray(env.x0) + 0.1 * rng.standard_normal((N_GPS, 2)), **kw)
+    sigma0s = (1e-2 * torch.eye(2, **kw)).expand(N_GPS, 2, 2)
+    gen = torch.Generator(device=device).manual_seed(0)
+    kff0 = 1e-4 * torch.randn(N_GPS, T_GPS, 1, generator=gen, **kw)
+
+    def solver(engine, nb_iter):
+        return make_mbgps_solver_batched(env, T_GPS, nb_iter=nb_iter, bisect_iters=GPS_BISECT,
+                                         engine=engine, **GPS_KW, **kw)
+
+    solve = solver("cuda", GPS_ITER)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    state, traces = solve(mu0s, sigma0s, kff_init=kff0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(json.dumps({"gps_solver_launches": launches, "first_solve_s": first_s}))
+    for k in ("K6", "K7"):
+        if launches[k] != GPS_ITER * GPS_BISECT:
+            fail(f"the GPS solver launched {k} {launches[k]} times, not "
+                 f"{GPS_ITER} x {GPS_BISECT}")
+    if not bool(torch.isfinite(traces).all()):
+        fail("non-finite GPS traces")
+    higher = int((traces[:, -1] > traces[:, 0]).sum())
+    if higher:
+        fail(f"{higher} GPS final returns above their initial value")
+
+    # the scan engine on the first instances: instances are independent in the
+    # lockstep batch, so the first iterations of the full run are theirs; the
+    # JAX package's own device tolerance (tests/test_tpu.py:62)
+    for w in wrappers.values():
+        w.launches = 0
+    _, scan_traces = solver("scan", GPS_ITER_SCAN)(mu0s[:N_GPS_SCAN], sigma0s[:N_GPS_SCAN],
+                                                     kff_init=kff0[:N_GPS_SCAN])
+    torch.cuda.synchronize()
+    if any(w.launches for w in wrappers.values()):
+        fail("the scan engine launched a kernel")
+    got, want = traces[:N_GPS_SCAN, :GPS_ITER_SCAN + 1].double(), scan_traces.double()
+    excess = ((got - want).abs() - (1e-4 + 1e-4 * want.abs())).max().item()
+    rel = ((got - want).abs() / want.abs()).max().item()
+    accepted = (traces[:, 1:] != traces[:, :-1]).double().mean().item()
+    log(json.dumps({"gps_mean_initial_return": traces[:, 0].double().mean().item(),
+                    "gps_mean_final_return": traces[:, -1].double().mean().item(),
+                    "accepted_share": accepted, "cuda_vs_scan_max_rel": rel,
+                    "tol": "rtol 1e-4, atol 1e-4"}))
+    if excess > 0:
+        fail(f"GPS cuda and scan traces differ beyond rtol/atol 1e-4 (rel {rel:.3e})")
+
+    # timings: one outer iteration from the initial state, one dual evaluation
+    # (the α plane, K6, K7) on that state's packed operands
+    state0 = solve.init(mu0s, sigma0s, kff_init=kff0)
+    init_ms = time_cuda(lambda: solve.init(mu0s, sigma0s, kff_init=kff0), 2)
+    iter_ms = time_cuda(lambda: solve.iteration(state0), 3)
+    packed = pack_gps(state0.cost, state0.dyn, state0.ctl, mu0s, sigma0s)
+    mid = torch.zeros(N_GPS, **kw)
+
+    def dual_eval():
+        from trajopt_torch.core.cuda_gps import (
+            cuda_gps_backward_packed,
+            cuda_gps_forward_kl_packed,
+        )
+
+        alpha_l = pack_gps_alpha((10.0 ** mid)[:, None].expand(N_GPS, T_GPS))
+        K_l, kff_l, sigc_l, *_ = cuda_gps_backward_packed(packed, alpha_l)
+        return cuda_gps_forward_kl_packed(packed, K_l, kff_l, sigc_l)
+
+    dual_ms = time_cuda(dual_eval, 50)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve.iteration(state0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    # the solver's phase annotations show on the device timeline too: count
+    # kernels and copies only
+    on_device = [e for e in events
+                 if e.device_type == DeviceType.CUDA and not e.key.startswith("gps.")]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    kern_ms = {k: sum(e.self_device_time_total for e in on_device if name in e.key) / 1e3
+               for k, name in (("K6", "gps_backward_kernel"), ("K7", "gps_forward_kl_kernel"))}
+    calls = {name: sum(e.count for e in events if e.key == name)
+             for name in ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaStreamSynchronize")}
+    top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
+    spans = {e.key: e.cpu_time_total / 1e3 for e in events
+             if e.key.startswith("gps.") and e.device_type == DeviceType.CPU}
+    log(json.dumps({
+        "metric": "gps_solver", "config": f"Pendulum-TO-v0 dt=0.05 T={T_GPS} N={N_GPS} "
+        f"nb_iter={GPS_ITER} bisect_iters={GPS_BISECT} kl_bound=2.0 action_penalty=1e-5 "
+        "engine=cuda float32",
+        "ms_per_outer_iteration": iter_ms, "ms_init": init_ms, "ms_per_dual_evaluation": dual_ms,
+        "dual_evaluations_per_s": 1e3 / dual_ms,
+        "instance_iterations_per_s": N_GPS * 1e3 / iter_ms,
+        "launches_per_outer_iteration": {k: launches[k] / GPS_ITER for k in ("K6", "K7")},
+        "first_solve_s": first_s, "gpu": card}))
+    log(json.dumps({
+        "metric": "gps_iteration_profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms, "k6_device_ms": kern_ms["K6"],
+        "k7_device_ms": kern_ms["K7"],
+        "host_or_other_ms": wall_ms - kern_ms["K6"] - kern_ms["K7"],
+        "device_events": sum(e.count for e in on_device), "host_calls": calls,
+        "host_ms_by_phase": spans,
+        "top_self_cpu_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in top],
+        "gpu": card}))
+    alpha_l = pack_gps_alpha(torch.ones(N_GPS, T_GPS, **kw))
+    return packed, alpha_l, launches
+
+
+def gps_mpc_phase(device, card, wrappers):
+    """The GPS-MPC farm through run_gps_mpc_batch (batched, engine="cuda"):
+    finite costs, K6/K7 launched; the first episodes' first steps against the
+    scan engine on the same draws; control steps/s."""
+    import trajopt_torch
+    from trajopt_torch.parallel.gps import (
+        gps_mpc_draws,
+        make_gps_mpc_runner_batched,
+        run_gps_mpc_batch,
+    )
+
+    env = trajopt_torch.make("Pendulum-TO-v0", dt=0.05)
+    kw = dict(dtype=torch.float32, device=device)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    data = run_gps_mpc_batch(env, torch.Generator(device=device).manual_seed(0),
+                             GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS,
+                             nb_iter=GPS_MPC_ITER, bisect_iters=GPS_BISECT, batched=True,
+                             engine="cuda", **GPS_KW, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    per_step = GPS_MPC_ITER * GPS_BISECT
+    log(json.dumps({"gps_mpc_launches": launches, "per_control_step": per_step}))
+    for k in ("K6", "K7"):
+        if launches[k] != GPS_MPC_STEPS * per_step:
+            fail(f"the GPS-MPC farm launched {k} {launches[k]} times, not "
+                 f"{GPS_MPC_STEPS} x {per_step}")
+    if not (bool(torch.isfinite(data["c"]).all()) and bool(torch.isfinite(data["x"]).all())):
+        fail("non-finite GPS-MPC states or costs")
+
+    x0s, kff, noise = gps_mpc_draws(env, torch.Generator(device=device).manual_seed(0),
+                                    GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS, **kw)
+    if not torch.equal(x0s, data["x"][:, 0]):
+        fail("the GPS-MPC draws were not reproduced")
+    E, S = GPS_MPC_CHECK_EPISODES, GPS_MPC_CHECK_STEPS
+    run = make_gps_mpc_runner_batched(env, GPS_MPC_HORIZON, S, nb_iter=GPS_MPC_ITER,
+                                      bisect_iters=GPS_BISECT, engine="scan", **GPS_KW, **kw)
+    states, actions, costs = run(x0s[:E], kff_init=kff[:E, :S], noise=noise[:E, :S])
+    torch.cuda.synchronize()
+    # float32 through the closed loop: the bisection of either engine may
+    # settle a few ulps apart; the solver path's tolerance
+    worst = 0.0
+    for name, a, b in (("states", data["x"][:E, :S + 1], states),
+                       ("actions", data["u"][:E, :S], actions),
+                       ("costs", data["c"][:E, :S], costs)):
+        a, b = a.double(), b.double()
+        excess = ((a - b).abs() - (1e-4 + 1e-4 * b.abs())).max().item()
+        worst = max(worst, ((a - b).abs() / b.abs().clamp(min=1e-30)).max().item())
+        if excess > 0:
+            fail(f"GPS-MPC {name}: cuda and scan differ beyond rtol/atol 1e-4")
+    returns = data["c"].double().sum(dim=1)
+    log(json.dumps({
+        "metric": "gps_mpc", "config": f"Pendulum-TO-v0 dt=0.05 episodes={GPS_MPC_EPISODES} "
+        f"horizon={GPS_MPC_HORIZON} steps={GPS_MPC_STEPS} nb_iter={GPS_MPC_ITER} kl_bound=2.0 "
+        "action_penalty=1e-5 batched=True engine=cuda float32",
+        "control_steps_per_s": GPS_MPC_STEPS / secs,
+        "episode_steps_per_s": GPS_MPC_EPISODES * GPS_MPC_STEPS / secs, "seconds": secs,
+        "mean_return": returns.mean().item(), "std_return": returns.std().item(),
+        "cuda_vs_scan_max_rel": worst, "checked": f"{E} episodes x {S} steps",
+        "gpu": card}))
 
 
 def main():
@@ -702,7 +1170,24 @@ def main():
         if T == T_REPLAN:
             rows.append(row)
 
-    # 9. the kernels line, then the device line last
+    # 9-11. GPS: K6/K7 against their plain versions, the solver path, the
+    # GPS-MPC farm, the kernels' timings
+    from trajopt_torch.core.cuda_gps import cuda_gps_backward_packed, cuda_gps_forward_kl_packed
+
+    wrappers.update(K6=cuda_gps_backward_packed, K7=cuda_gps_forward_kl_packed)
+    dual_packed, dual_alpha, dual_errs = check_gps_kernels(dev)
+    solver_packed, solver_alpha, gps_launches = gps_solver_phase(dev, card, wrappers)
+    log("K6/K7 checks: float32 on the solver path's first dual operands, tolerance 1e-4")
+    solver_errs = check_gps_case(f"f32 solver path T={T_GPS} dx=2 du=1", solver_packed,
+                                 solver_alpha, 1e-4)[:2]
+    gps_mpc_phase(dev, card, wrappers)
+    gps_rows = gps_kernel_rows("solver path", solver_packed, solver_alpha, gps_launches,
+                               dict(zip(("K6", "K7"), solver_errs)), card)
+    gps_kernel_rows("dual chain benchmark shape", dual_packed, dual_alpha, gps_launches,
+                    dict(zip(("K6", "K7"), dual_errs)), card)
+    rows += [gps_rows["K6"], gps_rows["K7"]]
+
+    # 12. the kernels line, then the device line last
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

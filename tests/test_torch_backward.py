@@ -52,8 +52,8 @@ def _jax_scan(cost, A, B, lam, reg):
         pol, value, _, dV, div = jax_scan.ilqr_backward(c, a, b, l, reg)
         return pol.K, pol.kff, value.V, dV, div
 
-    return [np.asarray(o) for o in jax.vmap(one)(jc, jnp.asarray(A), jnp.asarray(B),
-                                                  jnp.asarray(lam))]
+    return [np.asarray(o) for o in jax.jit(jax.vmap(one))(jc, jnp.asarray(A), jnp.asarray(B),
+                                                           jnp.asarray(lam))]
 
 
 def _torch_cost(cost):
@@ -91,10 +91,12 @@ def test_k4_plain_matches_pallas_interpret(reg, lam, dims, non_pd):
     cost, A, B = _random_lqr(np.random.default_rng(7 + du), N, T, dx, du, non_pd)
     lam_v = np.full(N, lam)
     jc = jax_types.QuadraticCost(**{k: jnp.asarray(v) for k, v in cost.items()})
-    pol_j, dV_j, div_j = pallas_ilqr_backward(
-        jc, jnp.asarray(A), jnp.asarray(B), jnp.asarray(lam_v), reg, time_chunk=1,
-        interpret=True,
-    )
+    # jitted with the lane packing: run eagerly, each packing operation would
+    # compile on its own
+    pol_j, dV_j, div_j = jax.jit(
+        lambda c, A, B, lam: pallas_ilqr_backward(c, A, B, lam, reg, time_chunk=1,
+                                                  interpret=True)
+    )(jc, jnp.asarray(A), jnp.asarray(B), jnp.asarray(lam_v))
     n_pad = lane_pad(N)
     packed = pack_lanes(_torch_cost(cost), torch.as_tensor(A), torch.as_tensor(B), n_pad)
     K_l, kff_l, dV_l, bad_l = cuda_ilqr_backward_packed(

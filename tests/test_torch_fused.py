@@ -37,9 +37,10 @@ def _trajectory(jenv, N, T, seed, saturate=False):
         umax = jenv.umax[0]
         us[:, ::2, 0] = np.where(rng.random((N, (T + 1) // 2)) < 0.5, umax, -umax)
     x = np.tile(np.asarray(jenv.x0), (N, 1)) + 0.3 * rng.standard_normal((N, jenv.dm_state))
+    step = jax.jit(jax.vmap(jenv.dynamics))
     xs = [x]
     for t in range(T):
-        x = np.asarray(jax.vmap(jenv.dynamics)(jnp.asarray(x), jnp.asarray(us[:, t])))
+        x = np.asarray(step(jnp.asarray(x), jnp.asarray(us[:, t])))
         xs.append(x)
     return np.stack(xs, axis=1), us
 

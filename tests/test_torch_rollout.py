@@ -41,9 +41,10 @@ def _problem(jenv, N, T, seed, scale=0.3):
     kff = 20.0 * rng.standard_normal((N, T, du))
     uref = scale * rng.standard_normal((N, T, du))
     x = np.asarray(jenv.x0) + 0.1 * rng.standard_normal((N, dx))
+    step = jax.jit(jax.vmap(jenv.dynamics))
     xs = [x]
     for t in range(T):
-        x = np.asarray(jax.vmap(jenv.dynamics)(jnp.asarray(x), jnp.asarray(uref[:, t])))
+        x = np.asarray(step(jnp.asarray(x), jnp.asarray(uref[:, t])))
         xs.append(x)
     return K, kff, np.stack(xs, axis=1), uref
 
@@ -66,29 +67,48 @@ def _t(*arrays):
     ],
 )
 def test_k2_k3_plain_match_pallas_interpret(name, kw, activation):
+    """K2's returns on every α and K3's rollout of each α, against one
+    interpret-mode call of each Pallas kernel: phase B runs every (instance,
+    α) pair at once, one lane each."""
     jenv, tenv = _envs(name, kw)
     N, T = 4, 8
     alphas = (1.0, 0.5, 0.1)
+    nA = len(alphas)
     K, kff, xref, uref = _problem(jenv, N, T, seed=0)
-    s_j, a_j, ret_j, ok_j = jax_rollout.rollout_all_alphas_pallas(
-        jenv, jnp.asarray(K), jnp.asarray(kff), jnp.asarray(xref), jnp.asarray(uref),
-        jax_weighting(T, activation), alphas, time_chunk=1, interpret=True,
-    )
+    w_j = jax_weighting(T, activation)
+    packed_j = jax_rollout.pack_rollout(*(jnp.asarray(a) for a in (K, kff, xref, uref)))
+    ret_jl, ok_jl = jax_rollout.pallas_rollout_returns(jenv, packed_j, w_j, alphas,
+                                                       time_chunk=1, interpret=True)
+    ret_j = np.asarray(ret_jl).reshape(nA, -1)[:, :N].T
+    ok_j = np.asarray(ok_jl).reshape(nA, -1)[:, :N].T > 0
+    # phase B: lane i·N + n rolls instance n out at alphas[i]
+    rep = [np.concatenate([a] * nA) for a in (K, kff, xref, uref)]
+    packed_rep = jax_rollout.pack_rollout(*(jnp.asarray(a) for a in rep))
+    alpha_rep = np.repeat(alphas, N)
+    lanes = np.zeros(packed_rep["K"].shape[2:])
+    lanes.reshape(-1)[: nA * N] = alpha_rep
+    s_jl, a_jl, xT_jl, r_jl = jax_rollout.pallas_rollout_selected(
+        jenv, packed_rep, w_j, jnp.asarray(lanes), time_chunk=1, interpret=True)
+    s_j, a_j = (np.asarray(x).reshape(nA, N, *x.shape[1:]) for x in
+                jax_rollout.unpack_selected(s_jl, a_jl, xT_jl, nA * N))
+    r_j = np.asarray(r_jl).reshape(-1)[: nA * N].reshape(nA, N)
+    np.testing.assert_allclose(r_j.T, ret_j, **TOL)
+
     n_pad = lane_pad(N)
     streams = pack_rollout(*_t(K, kff, xref, uref), n_pad)
     w = make_weighting(T, activation, device="cpu", dtype=torch.float64)
     alphas_t = torch.tensor(alphas, dtype=torch.float64)
     ret_l, ok_l = cuda_rollout_returns(tenv, *streams, w, alphas_t)
-    np.testing.assert_allclose(ret_l[:, :N].T.numpy(), np.asarray(ret_j), **TOL)
-    np.testing.assert_array_equal(ok_l[:, :N].T.numpy(), np.asarray(ok_j))
-    assert np.any(np.abs(np.asarray(a_j)) == jenv.umax[0])
+    np.testing.assert_allclose(ret_l[:, :N].T.numpy(), ret_j, **TOL)
+    np.testing.assert_array_equal(ok_l[:, :N].T.numpy(), ok_j)
+    assert np.any(np.abs(a_j) == jenv.umax[0])
     for i, a in enumerate(alphas):
         al = pad_lanes(torch.full((N,), a, dtype=torch.float64), n_pad)
         xs_l, us_l, xT_l, r_l = cuda_rollout_selected(tenv, *streams, w, al)
         states, actions = unpack_selected(xs_l, us_l, xT_l, N)
-        np.testing.assert_allclose(states.numpy(), np.asarray(s_j[:, i]), **TOL)
-        np.testing.assert_allclose(actions.numpy(), np.asarray(a_j[:, i]), **TOL)
-        np.testing.assert_allclose(r_l[:N].numpy(), np.asarray(ret_j[:, i]), **TOL)
+        np.testing.assert_allclose(states.numpy(), s_j[i], **TOL)
+        np.testing.assert_allclose(actions.numpy(), a_j[i], **TOL)
+        np.testing.assert_allclose(r_l[:N].numpy(), ret_j[:, i], **TOL)
 
 
 def test_k3_plain_selected_alpha_per_lane():
@@ -106,14 +126,15 @@ def test_k3_plain_selected_alpha_per_lane():
     )
     states, actions = unpack_selected(xs_l, us_l, xT_l, N)
     w_j = jax_weighting(T, None)
-    for i in range(N):
-        s, a, c = jax_rollout_tracking(
-            jenv, JaxPolicy(K=jnp.asarray(K[i]), kff=jnp.asarray(kff[i])), alphas[i],
-            jnp.asarray(xref[i, 0]), jnp.asarray(xref[i]), jnp.asarray(uref[i]), w_j,
-        )
-        np.testing.assert_allclose(states[i].numpy(), np.asarray(s), **TOL)
-        np.testing.assert_allclose(actions[i].numpy(), np.asarray(a), **TOL)
-        np.testing.assert_allclose(float(r_l[i]), float(jnp.sum(c)), rtol=1e-10)
+
+    def one(K1, kff1, xr, ur, a):
+        return jax_rollout_tracking(jenv, JaxPolicy(K=K1, kff=kff1), a, xr[0], xr, ur, w_j)
+
+    s_j, a_j, c_j = jax.jit(jax.vmap(one))(
+        *(jnp.asarray(x) for x in (K, kff, xref, uref, alphas)))
+    np.testing.assert_allclose(states.numpy(), np.asarray(s_j), **TOL)
+    np.testing.assert_allclose(actions.numpy(), np.asarray(a_j), **TOL)
+    np.testing.assert_allclose(r_l[:N].numpy(), np.asarray(jnp.sum(c_j, axis=1)), rtol=1e-10)
 
 
 @pytest.mark.parametrize("name", ["Cartpole-TO-v0", "Cartpole-TO-v1"])
@@ -129,8 +150,8 @@ def test_scan_rollout_tracking_matches_jax(name):
     def one(K1, kff1, xr, ur, a):
         return jax_rollout_tracking(jenv, JaxPolicy(K=K1, kff=kff1), a, xr[0], xr, ur, w_j)
 
-    s_j, a_j, c_j = jax.vmap(one)(jnp.asarray(K), jnp.asarray(kff), jnp.asarray(xref),
-                                  jnp.asarray(uref), jnp.asarray(alphas))
+    s_j, a_j, c_j = jax.jit(jax.vmap(one))(jnp.asarray(K), jnp.asarray(kff), jnp.asarray(xref),
+                                           jnp.asarray(uref), jnp.asarray(alphas))
     Kt, kfft, xt, ut = _t(K, kff, xref, uref)
     s_t, a_t, c_t = rollout_tracking(
         tenv, LinearPolicy(K=Kt, kff=kfft), torch.as_tensor(alphas), xt[:, 0], xt, ut, w_t

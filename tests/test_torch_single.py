@@ -1,6 +1,6 @@
 """The port's single-problem iLQR against trajopt_tpu's, float64 on the CPU.
 
-``make_ilqr_solver`` on Pendulum-TO-v0 (dt=0.05, uw=1e-5, T=30, 5
+``make_ilqr_solver`` on Pendulum-TO-v0 (dt=0.05, uw=1e-5, T=16, 5
 iterations): the ``scan`` and ``pscan`` engines against JAX's, and
 ``cuda-pscan`` (K5's plain version on CPU tensors) against JAX's ``pscan``,
 since JAX's ``pallas-pscan`` has no CPU route inside the solver.  Also: the
@@ -28,7 +28,7 @@ from trajopt_tpu.parallel import mpc as jax_mpc
 
 torch.set_num_threads(1)
 
-T, NB_ITER = 30, 5
+T, NB_ITER = 16, 5
 TOL = dict(rtol=1e-7, atol=1e-9)
 F64 = dict(device="cpu", dtype=torch.float64)
 
@@ -41,11 +41,13 @@ def _as_np(state):
 def ref():
     jenv = trajopt_tpu.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
     x0 = np.asarray(jenv.x0)
-    solves = {}
-    for eng in ("scan", "pscan"):
-        state, trace = jax.jit(jax_mpc.make_ilqr_solver(jenv, T, nb_iter=NB_ITER, backward=eng))(
-            jnp.asarray(x0))
-        solves[eng] = (_as_np(state), np.asarray(trace))
+    engines = ("scan", "pscan")
+    solvers = [jax_mpc.make_ilqr_solver(jenv, T, nb_iter=NB_ITER, backward=eng)
+               for eng in engines]
+    # one program for both engines: one compile instead of two
+    outs = jax.jit(lambda x: [solve(x) for solve in solvers])(jnp.asarray(x0))
+    solves = {eng: (_as_np(state), np.asarray(trace))
+              for eng, (state, trace) in zip(engines, outs)}
 
     return dict(
         jenv=jenv, env=env_from_fields("Pendulum-TO-v0", dataclasses.asdict(jenv)), x0=x0,

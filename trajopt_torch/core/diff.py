@@ -12,7 +12,8 @@ import torch
 from torch import Tensor
 from torch.func import grad, hessian, jacfwd, jacrev, vmap
 
-from .types import QuadraticCost
+from ..envs.base import _matvec
+from .types import LinearDynamics, QuadraticCost
 
 
 def _pad_actions(us: Tensor) -> tuple[Tensor, Tensor]:
@@ -20,6 +21,18 @@ def _pad_actions(us: Tensor) -> tuple[Tensor, Tensor]:
     column pads the end of u, and u_last at t = 0 is zero."""
     zero = torch.zeros_like(us[..., :1, :])
     return torch.cat([us, zero], dim=-2), torch.cat([zero, us], dim=-2)
+
+
+def _quad(x: Tensor, M: Tensor, y: Tensor) -> Tensor:
+    """xᵀ M y over the trailing axes, as ``(x @ M) @ y``."""
+    return ((x.unsqueeze(-2) @ M).squeeze(-2) * y).sum(-1)
+
+
+def linearize_dynamics(f: Callable, xs: Tensor, us: Tensor) -> LinearDynamics:
+    """First-order expansion with residual, f(x, u) ≈ A x + B u + c, at each
+    (x, u) of ``xs (..., dx)``, ``us (..., du)`` (absolute convention)."""
+    A, B = linearize_dynamics_delta(f, xs, us)
+    return LinearDynamics(A=A, B=B, c=f(xs, us) - _matvec(A, xs) - _matvec(B, us))
 
 
 def linearize_dynamics_delta(f: Callable, xs: Tensor, us: Tensor) -> tuple[Tensor, Tensor]:
@@ -68,3 +81,41 @@ def quadratize_cost_delta(
     (T+1,)``; returns (T+1)-length stacks, c0 zeros."""
     u_pad, u_last = _pad_actions(us)
     return _quadratize_delta(cost, xs, u_pad, u_last, weights)
+
+
+def quadratize_cost_abs(
+    cost: Callable, xs: Tensor, us: Tensor, weights: Tensor
+) -> QuadraticCost:
+    """Origin-recentred absolute-convention quadratic with ½-scaled Hessians:
+    cost(x, u) ≈ xᵀCxx x + uᵀCuu u + 2 xᵀCxu u + cxᵀx + cuᵀu + c0 about each
+    point.  ``xs (..., T+1, dx)``, ``us (..., T, du)``, ``weights (T+1,)``."""
+    u_pad, u_last = _pad_actions(us)
+    raw = _quadratize_delta(cost, xs, u_pad, u_last, weights)
+    Cxx, Cuu, Cxu = 0.5 * raw.Cxx, 0.5 * raw.Cuu, 0.5 * raw.Cxu
+    cx = raw.cx - _matvec(raw.Cxx, xs) - _matvec(raw.Cxu, u_pad)
+    cu = raw.cu - _matvec(raw.Cuu, u_pad) - _matvec(raw.Cxu.mT, xs)
+    c0 = (
+        cost(xs, u_pad, u_last, weights.expand(xs.shape[:-1]))
+        - _quad(xs, Cxx, xs)
+        - _quad(u_pad, Cuu, u_pad)
+        - 2.0 * _quad(xs, Cxu, u_pad)
+        - (cx * xs).sum(-1)
+        - (cu * u_pad).sum(-1)
+    )
+    return QuadraticCost(Cxx=Cxx, cx=cx, Cuu=Cuu, cu=cu, Cxu=Cxu, c0=c0)
+
+
+def evaluate_quadratic_cost(cost: QuadraticCost, xs: Tensor, us: Tensor) -> Tensor:
+    """Σ_t xᵀCxx x + uᵀCuu u + 2xᵀCxu u + cxᵀx + cuᵀu + c0 over the horizon,
+    the actions zero-padded at the terminal step; ``xs (..., T+1, dx)``,
+    ``us (..., T, du)`` → ``(...)``."""
+    u_pad, _ = _pad_actions(us)
+    quad = (
+        _quad(xs, cost.Cxx, xs)
+        + _quad(u_pad, cost.Cuu, u_pad)
+        + 2.0 * _quad(xs, cost.Cxu, u_pad)
+        + (xs * cost.cx).sum(-1)
+        + (u_pad * cost.cu).sum(-1)
+        + cost.c0
+    )
+    return quad.sum(-1)

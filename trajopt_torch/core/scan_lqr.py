@@ -1,8 +1,15 @@
-"""Sequential iLQR backward pass (counterpart of ``trajopt_tpu/core/scan_lqr.py``).
+"""Sequential LQR kernels (counterpart of ``trajopt_tpu/core/scan_lqr.py``).
 
-A Python loop over time with batched small matrix products; any leading batch
-dimensions run together.  The hot-path engines are the CUDA kernels in
-``cuda_lqr``/``cuda_fused``; this is the ``backward="scan"`` reference.
+Python loops over time with batched small matrix products; any leading batch
+dimensions run together.  The hot-path engines are the CUDA kernels
+(``cuda_lqr``, ``cuda_fused``, ``cuda_gps``); these are the ``scan`` engines:
+
+* :func:`ilqr_backward` — the regularized iLQR backward pass;
+* :func:`gps_backward` — the soft-KL (−1/α-scaled) backward pass of GPS;
+* :func:`gaussian_forward` — exact Gaussian propagation under a
+  linear-Gaussian controller;
+* :func:`augment_cost_kl`, :func:`policy_kl`, :func:`quad_expectation` — the
+  rest of GPS's dual chain.
 """
 
 from __future__ import annotations
@@ -10,8 +17,21 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from ..utils.psd import cholesky
-from .types import LinearPolicy, QuadraticCost, QuadraticQValue, QuadraticValue, symmetrize
+import math
+
+from ..utils.psd import chol_solve, cholesky, inv_psd, logdet_psd
+from .types import (
+    GaussianSequence,
+    LinearGaussianDynamics,
+    LinearGaussianPolicy,
+    LinearPolicy,
+    QuadraticCost,
+    QuadraticQValue,
+    QuadraticValue,
+    symmetrize,
+)
+
+_LOG_2PI = 1.8378770664093453  # log(2π)
 
 
 def _mv(M: Tensor, x: Tensor) -> Tensor:
@@ -95,3 +115,184 @@ def ilqr_backward(
     )
     qvalue = QuadraticQValue(Qxx=Qxx, Quu=Quu, Qux=Qux, qx=qx, qu=qu, q0=zeros_T)
     return LinearPolicy(K=K, kff=kff), value, qvalue, dV, bad
+
+
+# --------------------------------------------------------------------------------------
+# GPS (soft-KL backward, absolute convention) and its dual chain
+# --------------------------------------------------------------------------------------
+
+
+def _trace(M: Tensor) -> Tensor:
+    return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+
+
+def _dot(x: Tensor, y: Tensor) -> Tensor:
+    return (x * y).sum(-1)
+
+
+def gps_backward(
+    agcost: QuadraticCost, dyn: LinearGaussianDynamics, alpha: Tensor,
+) -> tuple[LinearGaussianPolicy, QuadraticValue, QuadraticQValue, Tensor]:
+    """Soft-KL Riccati pass producing a stochastic controller
+    (gps/src/util.cpp:272-374).
+
+    Q-blocks are scaled by −1/α(t), so −Quu must be positive definite; the
+    controller is K = −Quu⁻¹Qux, kff = −½Quu⁻¹qu, Σ_ctl = −½Quu⁻¹.  ``agcost``
+    stacks have T+1 steps, ``alpha (..., T)``.  A failed factorization of −Quu
+    (``jnp.linalg.cholesky``'s NaN) flags divergence and continues with the
+    identity factor; v0 then goes NaN through log det.  Returns (policy, value
+    (T+1), qvalue, diverged (...) bool).
+    """
+    T, du = dyn.horizon, dyn.B.shape[-1]
+    lead = dyn.A.shape[:-3]
+    dt, dev = dyn.A.dtype, dyn.A.device
+    eye_u = torch.eye(du, dtype=dt, device=dev)
+    V, v, v0 = agcost.Cxx[..., T, :, :], agcost.cx[..., T, :], agcost.c0[..., T]
+    V_T, v_T, v0_T = V, v, v0
+    bad = torch.zeros(lead, dtype=torch.bool, device=dev)
+    outs = []
+    for t in reversed(range(T)):
+        Cxx, cx, c0 = agcost.Cxx[..., t, :, :], agcost.cx[..., t, :], agcost.c0[..., t]
+        Cuu, cu, Cxu = agcost.Cuu[..., t, :, :], agcost.cu[..., t, :], agcost.Cxu[..., t, :, :]
+        A, B = dyn.A[..., t, :, :], dyn.B[..., t, :, :]
+        c, sig = dyn.c[..., t, :], dyn.sigma[..., t, :, :]
+        a = alpha[..., t]
+        am = a[..., None, None]
+        AT, BT = A.mT, B.mT
+
+        Qxx = -(Cxx + AT @ V @ A) / am
+        Quu = -(Cuu + BT @ V @ B) / am
+        Qux = -(Cxu + AT @ V @ B).mT / am
+        qu = -(cu + _mv(2.0 * BT @ V, c) + _mv(BT, v)) / a[..., None]
+        qx = -(cx + _mv(2.0 * AT @ V, c) + _mv(AT, v)) / a[..., None]
+        q0 = -(c0 + v0 + _dot(_mv(V.mT, c), c) + _trace(V @ sig) + _dot(v, c)) / a
+
+        neg_chol = cholesky(-symmetrize(Quu))
+        finite = torch.isfinite(neg_chol)
+        safe = torch.where(finite, neg_chol, eye_u)
+        bad = bad | ~finite.all(dim=(-2, -1))
+
+        K = chol_solve(safe, Qux)
+        kff = 0.5 * chol_solve(safe, qu)
+        sigma_ctl = symmetrize(0.5 * chol_solve(safe, eye_u.expand(safe.shape)))
+
+        V = symmetrize(-am * (Qxx + Qux.mT @ K))
+        v = -a[..., None] * (qx + _mv(2.0 * Qux.mT, kff))
+        logdet_m2Quu = du * math.log(2.0) + 2.0 * torch.log(
+            torch.diagonal(neg_chol, dim1=-2, dim2=-1)).sum(-1)
+        v0 = -a * (0.5 * _dot(qu, kff) + q0 + 0.5 * (du * _LOG_2PI - logdet_m2Quu))
+        outs.append((K, kff, sigma_ctl, V, v, v0, Qxx, Quu, Qux, qx, qu, q0))
+
+    K, kff, sigma_ctl, Vs, vs, v0s, Qxx, Quu, Qux, qx, qu, q0 = (
+        torch.stack(seq[::-1], dim=len(lead)) for seq in zip(*outs)
+    )
+    value = QuadraticValue(
+        V=torch.cat([Vs, V_T.unsqueeze(-3)], dim=-3),
+        v=torch.cat([vs, v_T.unsqueeze(-2)], dim=-2),
+        v0=torch.cat([v0s, v0_T.unsqueeze(-1)], dim=-1),
+    )
+    qvalue = QuadraticQValue(Qxx=Qxx, Quu=Quu, Qux=Qux, qx=qx, qu=qu, q0=q0)
+    return LinearGaussianPolicy(K=K, kff=kff, sigma=sigma_ctl), value, qvalue, bad
+
+
+def gaussian_forward(
+    dyn: LinearGaussianDynamics, policy: LinearGaussianPolicy, mu0: Tensor, sigma0: Tensor,
+) -> tuple[GaussianSequence, GaussianSequence, GaussianSequence]:
+    """Exact propagation of the (x, u, xu) joint through linear-Gaussian
+    dynamics and controller (gps/src/util.cpp:195-269).
+
+    Returns (xdist: T+1, udist: T, xudist: T+1); the terminal xu entry holds
+    the terminal state marginal with a zero action block.
+    """
+    T, dx, du = dyn.horizon, dyn.A.shape[-1], dyn.B.shape[-1]
+    mu_x, sigma_x = mu0, sigma0
+    outs = []
+    for t in range(T):
+        A, B = dyn.A[..., t, :, :], dyn.B[..., t, :, :]
+        c, sig_dyn = dyn.c[..., t, :], dyn.sigma[..., t, :, :]
+        K, kff, sig_ctl = policy.K[..., t, :, :], policy.kff[..., t, :], policy.sigma[..., t, :, :]
+        mu_u = _mv(K, mu_x) + kff
+        sigma_u = symmetrize(sig_ctl + K @ sigma_x @ K.mT)
+        cross = sigma_x @ K.mT
+        sigma_xu = symmetrize(torch.cat([torch.cat([sigma_x, cross], dim=-1),
+                                         torch.cat([cross.mT, sigma_u], dim=-1)], dim=-2))
+        mu_xu = torch.cat([mu_x, mu_u], dim=-1)
+        AB = torch.cat([A, B], dim=-1)
+        outs.append((mu_x, sigma_x, mu_u, sigma_u, mu_xu, sigma_xu))
+        sigma_x = symmetrize(sig_dyn + AB @ sigma_xu @ AB.mT)
+        mu_x = _mv(AB, mu_xu) + c
+
+    axis = mu0.dim() - 1
+    mus_x, sigmas_x, mus_u, sigmas_u, mus_xu, sigmas_xu = (
+        torch.stack(seq, dim=axis) for seq in zip(*outs)
+    )
+    mu_xu_T = torch.cat([mu_x, torch.zeros_like(mu_x[..., :du])], dim=-1)
+    sigma_xu_T = torch.zeros(*sigma_x.shape[:-2], dx + du, dx + du,
+                             dtype=sigma_x.dtype, device=sigma_x.device)
+    sigma_xu_T[..., :dx, :dx] = sigma_x
+    return (
+        GaussianSequence(mu=torch.cat([mus_x, mu_x.unsqueeze(-2)], dim=-2),
+                         sigma=torch.cat([sigmas_x, sigma_x.unsqueeze(-3)], dim=-3)),
+        GaussianSequence(mu=mus_u, sigma=sigmas_u),
+        GaussianSequence(mu=torch.cat([mus_xu, mu_xu_T.unsqueeze(-2)], dim=-2),
+                         sigma=torch.cat([sigmas_xu, sigma_xu_T.unsqueeze(-3)], dim=-3)),
+    )
+
+
+def augment_cost_kl(
+    cost: QuadraticCost, policy: LinearGaussianPolicy, alpha: Tensor
+) -> QuadraticCost:
+    """Fold the α-weighted KL(π‖π_old) penalty into the quadratic cost
+    (gps/src/util.cpp:136-193); ``alpha (..., T)``.  The terminal slice passes
+    through unchanged."""
+    T, du = policy.horizon, policy.kff.shape[-1]
+    K, kff, sig = policy.K, policy.kff, policy.sigma
+    a = alpha[..., None]
+    am = alpha[..., None, None]
+    KT = K.mT
+    lam = inv_psd(sig)
+    agCxx = cost.Cxx[..., :T, :, :] + 0.5 * am * KT @ lam @ K
+    agCuu = cost.Cuu[..., :T, :, :] + 0.5 * am * lam
+    agCxu = cost.Cxu[..., :T, :, :] - 0.5 * am * KT @ lam
+    agcx = cost.cx[..., :T, :] + _mv(a[..., None] * KT @ lam, kff)
+    agcu = cost.cu[..., :T, :] - _mv(am * lam, kff)
+    agc0 = (cost.c0[..., :T] + 0.5 * alpha * (du * _LOG_2PI + logdet_psd(sig))
+            + _dot(_mv(lam.mT, 0.5 * a * kff), kff))
+
+    return QuadraticCost(
+        Cxx=torch.cat([agCxx, cost.Cxx[..., T:, :, :]], dim=-3),
+        cx=torch.cat([agcx, cost.cx[..., T:, :]], dim=-2),
+        Cuu=torch.cat([agCuu, cost.Cuu[..., T:, :, :]], dim=-3),
+        cu=torch.cat([agcu, cost.cu[..., T:, :]], dim=-2),
+        Cxu=torch.cat([agCxu, cost.Cxu[..., T:, :, :]], dim=-3),
+        c0=torch.cat([agc0, cost.c0[..., T:]], dim=-1),
+    )
+
+
+def policy_kl(
+    p: LinearGaussianPolicy, q: LinearGaussianPolicy, xdist: GaussianSequence
+) -> Tensor:
+    """Per-step KL(p‖q) between linear-Gaussian policies under the state
+    marginal (gps/src/util.cpp:83-121); returns ``(..., T)``."""
+    T, du = p.horizon, p.kff.shape[-1]
+    mu, sig = xdist.mu[..., :T, :], xdist.sigma[..., :T, :, :]
+    q_lam = inv_psd(q.sigma)
+    dK = q.K - p.K
+    dk = p.kff - q.kff
+    diff_K = dK.mT @ q_lam @ dK
+    diff_crs = _mv(dK.mT @ q_lam, dk)
+    diff_kff = _dot(_mv(q_lam.mT, dk), dk)
+    return (
+        0.5 * (logdet_psd(q.sigma) - logdet_psd(p.sigma))
+        + 0.5 * _trace(q_lam @ p.sigma)
+        - 0.5 * du
+        + 0.5 * _trace(diff_K @ sig)
+        + 0.5 * _dot(_mv(diff_K.mT, mu), mu)
+        - _dot(mu, diff_crs)
+        + 0.5 * diff_kff
+    )
+
+
+def quad_expectation(mu: Tensor, sigma: Tensor, V: Tensor, v: Tensor, v0: Tensor) -> Tensor:
+    """E[xᵀVx + vᵀx + v0] under N(mu, sigma) (gps/src/util.cpp:123-134)."""
+    return _dot(_mv(V.mT, mu), mu) + _dot(mu, v) + v0 + _trace(V @ sigma)

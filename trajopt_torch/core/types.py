@@ -40,6 +40,19 @@ class LinearDynamics(NamedTuple):
         return self.A.shape[-3]
 
 
+class LinearGaussianDynamics(NamedTuple):
+    """Affine dynamics with Gaussian process noise, x' ~ N(A x + B u + c, sigma)."""
+
+    A: Tensor      # (T, dx, dx)
+    B: Tensor      # (T, dx, du)
+    c: Tensor      # (T, dx)
+    sigma: Tensor  # (T, dx, dx)
+
+    @property
+    def horizon(self) -> int:
+        return self.A.shape[-3]
+
+
 class QuadraticValue(NamedTuple):
     """Quadratic state-value function V(x) = xᵀ V x + vᵀ x + v0."""
 
@@ -68,6 +81,29 @@ class LinearPolicy(NamedTuple):
     @property
     def horizon(self) -> int:
         return self.K.shape[-3]
+
+
+class LinearGaussianPolicy(NamedTuple):
+    """Time-varying linear-Gaussian controller u ~ N(kff + K x, sigma)."""
+
+    K: Tensor      # (T, du, dx)
+    kff: Tensor    # (T, du)
+    sigma: Tensor  # (T, du, du)
+
+    @property
+    def horizon(self) -> int:
+        return self.K.shape[-3]
+
+
+class GaussianSequence(NamedTuple):
+    """A sequence of Gaussian marginals."""
+
+    mu: Tensor     # (T, d)
+    sigma: Tensor  # (T, d, d)
+
+    @property
+    def horizon(self) -> int:
+        return self.mu.shape[-2]
 
 
 def symmetrize(M: Tensor) -> Tensor:

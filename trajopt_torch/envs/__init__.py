@@ -2,4 +2,5 @@
 
 from .base import TrajEnv, clip, make, register, registered, wrap_angle  # noqa: F401
 from .cartpole import Cartpole, CartpoleWithCartesianCost  # noqa: F401
+from .lqr import LQRv0, LQRv1, LQRv2  # noqa: F401
 from .pendulum import Pendulum, PendulumWithCartesianCost  # noqa: F401

@@ -100,6 +100,11 @@ class TrajEnv:
         return dataclasses.replace(self, **kwargs)
 
     # -- limits ------------------------------------------------------------------
+    @property
+    def ulim(self) -> Tensor:
+        """Action limits ``umax`` (float64, CPU)."""
+        return torch.tensor(self.umax, dtype=torch.float64)
+
     def clip_act(self, u: Tensor) -> Tensor:
         b = torch.tensor(self.umax, dtype=u.dtype, device=u.device)
         return clip(u, -b, b)

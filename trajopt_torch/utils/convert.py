@@ -2,7 +2,9 @@
 
 Plain Python and numpy values only: nothing here imports ``trajopt_tpu``.
 A caller turns a JAX env into ``dataclasses.asdict(env)`` and a JAX
-``ILQRState`` into a dict of numpy arrays.
+``ILQRState`` into a dict of numpy arrays; a JAX ``GPSState`` into a dict
+whose container fields (``ctl``, ``xdist``, ``dyn``, ``cost``) are dicts of
+numpy arrays keyed by their own fields.
 """
 
 from __future__ import annotations
@@ -12,8 +14,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.types import (
+    GaussianSequence,
+    LinearGaussianDynamics,
+    LinearGaussianPolicy,
+    QuadraticCost,
+)
 from ..envs.base import make
+from ..parallel.gps import GPSState
 from ..parallel.mpc import ILQRState
+
+_GPS_PARTS = {"ctl": LinearGaussianPolicy, "xdist": GaussianSequence,
+              "dyn": LinearGaussianDynamics, "cost": QuadraticCost}
 
 
 def _plain(v):
@@ -25,7 +37,7 @@ def _plain(v):
 
 
 def env_from_fields(env_id: str, fields: dict):
-    """The port's ``env_id`` (any registered id: Cartpole or Pendulum, v0/v1)
+    """The port's ``env_id`` (any registered id: Cartpole, Pendulum or LQR)
     with the given dataclass fields of the JAX env."""
     env = make(env_id)
     known = {f.name for f in dataclasses.fields(env)}
@@ -50,3 +62,30 @@ def ilqr_state_from_numpy(d: dict, *, device="cuda") -> ILQRState:
 def ilqr_state_to_numpy(state: ILQRState) -> dict:
     """The port's state → a dict of numpy arrays keyed by field."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def gps_state_from_numpy(d: dict, *, device="cuda") -> GPSState:
+    """A GPS state given as numpy arrays (keys: the ``GPSState`` fields, the
+    containers as dicts of their own fields) → the port's state on
+    ``device``, dtypes and shapes kept: unbatched from ``make_mbgps_solver``,
+    batch-leading from ``make_mbgps_solver_batched``."""
+    def conv(x):
+        return torch.as_tensor(np.array(x)).to(device)
+
+    fields = {}
+    for name in GPSState._fields:
+        part = _GPS_PARTS.get(name)
+        value = d[name]
+        fields[name] = part(*(conv(value[f]) for f in part._fields)) if part else conv(value)
+    return GPSState(**fields)
+
+
+def gps_state_to_numpy(state: GPSState) -> dict:
+    """The port's GPS state → nested dicts of numpy arrays, as
+    :func:`gps_state_from_numpy` takes them."""
+    def conv(x):
+        return x.detach().cpu().numpy()
+
+    return {name: ({f: conv(x) for f, x in value._asdict().items()}
+                   if name in _GPS_PARTS else conv(value))
+            for name, value in state._asdict().items()}

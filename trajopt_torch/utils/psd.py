@@ -26,3 +26,16 @@ def chol_solve(chol: Tensor, b: Tensor) -> Tensor:
     y = torch.linalg.solve_triangular(chol, B, upper=False)
     x = torch.linalg.solve_triangular(chol.mT, y, upper=True)
     return x.squeeze(-1) if vec else x
+
+
+def inv_psd(M: Tensor) -> Tensor:
+    """Inverse of each symmetric positive-definite matrix of ``M (..., n, n)``
+    through its Cholesky factor (NaN where the factorization fails)."""
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return chol_solve(cholesky(M), eye.expand(M.shape))
+
+
+def logdet_psd(M: Tensor) -> Tensor:
+    """log det of each SPD matrix of ``M (..., n, n)`` through its Cholesky
+    factor (NaN where the factorization fails)."""
+    return 2.0 * torch.log(torch.diagonal(cholesky(M), dim1=-2, dim2=-1)).sum(-1)
