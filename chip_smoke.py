@@ -53,7 +53,30 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    costs, the first 4 episodes' first 5 steps against the scan engine on the
    same draws; control steps/s; then K6/K7's times at the solver path's and
    the benchmark's shapes;
-12. the kernels line (K1-K7) and, last, the device line.
+12. kernel K8 (the belief-value backward) against its plain version:
+   float64 at N=37, T=9 for (b, a) = (2, 2) and (4, 2), reg ∈ {1, 2}, λ
+   alternating 0 and 3.7, instance 0 not positive definite (flags equal,
+   non-finite places equal); float32 at bench.py:511's shape (LightDark's
+   dims, T=25, N=4096) and on the batched solver's first backward operands;
+13. the batched BSP solver: make_bsp_solver_batched on LightDark-TO-v0,
+   T=25, N=4096, 10 iterations, engine="cuda": one K8 launch per λ trial the
+   solver ran, finite
+   traces, the scan engine on the first 64 instances within rtol/atol 1e-4;
+   ms per outer iteration; K8's device time, bound and plain time;
+14. kernel K9 (a whole BSP-iLQR solve in one launch) against its plain
+   version, float64 and float32, horizon 25, 10 iterations, for the default,
+   reg=2 and goal weights mu_w=(-2, -2); then make_cuda_bsp_solve as a user
+   calls it: one K9 launch, a decreasing trace, its device time and bound;
+15. the light-dark MPC episode: K10 against its plain version and the scan
+   runner on the same normals, float64, 5 steps; the scan runner's control
+   steps/s over 5 steps (float32); bench.py:447's episode (horizon 25, 50
+   steps, 10 iterations, float32) with engine="auto", which must resolve to
+   K10, agree with K10's plain version on the same normals over all 50 steps
+   and end with the belief mean within 0.1 of the goal; K10's control
+   steps/s, device time, bound and plain time;
+16. the kernels line (K1-K10) and, last, the device line.
+
+A line "[t s] phase" marks the start of the later phases.
 
 Exits nonzero, printing no result, without a CUDA device or without the
 package beside it.
@@ -104,6 +127,15 @@ N_GPS_SCAN, GPS_ITER_SCAN = 64, 3
 GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS, GPS_MPC_ITER = 50, 20, 50, 3
 GPS_MPC_CHECK_EPISODES, GPS_MPC_CHECK_STEPS = 4, 5
 T_DUAL, N_DUAL = 1000, 4096
+
+# The belief paths: K8 at bench.py's backward row (bench.py:511: LightDark's
+# dims, T=25, batch 4096) and the batched solver at that shape, 10
+# iterations, held against the scan engine on its first 64 instances; K9's
+# solve and K10's light-dark episode at bench.py:447's configuration
+# (horizon 25, 50 control steps, 10 iterations), K10 held against its plain
+# version and the scan runner over the first 5 steps in float64.
+T_BSP, N_BSP, BSP_ITER, BSP_STEPS = 25, 4096, 10, 50
+N_BSP_SCAN, BSP_CHECK_STEPS = 64, 5
 
 
 def _mm_ops(n, k, m):
@@ -848,6 +880,488 @@ def gps_mpc_phase(device, card, wrappers):
         "gpu": card}))
 
 
+# --------------------------------------------------------------------------------------
+# Belief space: kernels K8 (belief backward), K9 (single-launch solve) and
+# K10 (single-launch episode), the batched solver, the belief-MPC episode
+# --------------------------------------------------------------------------------------
+
+
+def k8_operations(T, b, a, reg):
+    """Operations of one K8 launch for one instance, counted from
+    csrc/belief.cu (one per add, multiply, divide, compare, square root or
+    negation): per step the value blocks (SF, SG, C, D, Eᵀ), the three
+    linear channels (c, d, e: the b²-row blocks against τ and vec S), the
+    regularization, the guarded a×a Cholesky with its b+1 solves, dS and the
+    value update (s, S)."""
+    mv = lambda n, k: _mm_ops(n, k, 1)  # noqa: E731
+    bb = b * b
+    blocks = (2 * _mm_ops(b, b, b) + 2 * _mm_ops(b, b, a) + _mm_ops(a, b, a)
+              + b * b + b * a + a * a)
+    channels = (mv(b, b) + 2 * mv(b, bb) + 4 * b + mv(a, b) + 2 * mv(a, bb) + 4 * a
+                + 2 * mv(bb, bb) + 3 * bb)
+    regularize = a if reg == 1 else 2 * b * a + _mm_ops(a, b, a) + _mm_ops(b, b, a) + a * a
+    factor = 2 * a * a + _chol_ops(a) + (b + 1) * (2 * a * a + a)
+    value = (mv(a, a) + 4 * a + 3 * mv(b, a) + 3 * b + _mm_ops(a, a, b)
+             + 2 * _mm_ops(b, a, b) + 5 * bb)
+    return T * (blocks + channels + regularize + factor + value)
+
+
+# Operations per step of K9/K10 at LightDark's dims (b = a = 2, one
+# observation of 2), counted from csrc/bsp.cu as above: the scalar EKF step
+# about 276 (dynamics with its Jacobian 44, the predicted covariance 34, the
+# innovation and its inverse 64, gain and W 48, the Joseph update 82); the
+# expansion differentiates it over 8 tangents, an add 9 and a multiply 25
+# operations on such a dual, so about 7,000 per step with the dynamics' inner
+# Jacobian; a ladder trial's backward step about 400; a rollout step about 310
+# (the tracking action, the cost, the EKF step); the decisions between phases
+# about 300 per iteration; the episode's own noisy step and EKF update about
+# 600 per control step.
+BSP_OPS = dict(ekf=276, expand=7000, trial=400, rollout=310, decide=300, episode_step=600)
+
+
+def k9_operations(T, nA, solves, worked):
+    """Operations of ``solves`` solves (K9; K10 adds its own step): the
+    initial rollouts of each and the ``worked`` iterations (those that ran
+    before a solve was done), the 16 ladder trials in each."""
+    from trajopt_torch.core.cuda_bsp import NL
+
+    o = BSP_OPS
+    rollouts = nA * (T + 1) * o["rollout"]
+    return solves * rollouts + worked * (T * o["expand"] + NL * T * o["trial"] + rollouts
+                                         + o["decide"])
+
+
+def belief_problem(N, T, b, a, seed, dtype, device, bad=False):
+    """Random batched belief expansions (the recipe of
+    tests/belief_fixtures.py): SPD Q and R, near-identity F, Y, U; with
+    ``bad``, instance 0's R negated so its regularized action Hessian is not
+    positive definite."""
+    from trajopt_torch.core.belief import BeliefCostExpansion, BeliefDynamicsExpansion
+
+    rng = np.random.default_rng(seed)
+    bb = b * b
+
+    def spd(d, shape, s):
+        M = rng.standard_normal(shape + (d, d))
+        return s * np.einsum("...ij,...kj->...ik", M, M) + d * np.eye(d)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    R = spd(a, (N, T + 1), 1.0)
+    if bad:
+        R[0] = -R[0]
+    n = rng.standard_normal
+    cost = BeliefCostExpansion(Q=t(spd(b, (N, T + 1), 0.1)), q=t(n((N, T + 1, b))), R=t(R),
+                               r=t(n((N, T + 1, a))), P=t(0.01 * n((N, T + 1, b, a))),
+                               p=t(n((N, T + 1, bb))))
+    dyn = BeliefDynamicsExpansion(
+        F=t(np.eye(b) + 0.05 * n((N, T, b, b))), G=t(0.2 * n((N, T, b, a))),
+        X=t(0.05 * n((N, T, bb, b))), Y=t(0.9 * np.eye(bb) + 0.02 * n((N, T, bb, bb))),
+        Z=t(0.05 * n((N, T, bb, a))), T=t(0.05 * n((N, T, bb, b))),
+        U=t(0.8 * np.eye(bb) + 0.02 * n((N, T, bb, bb))), V=t(0.05 * n((N, T, bb, a))))
+    return cost, dyn
+
+
+def bench_belief_problem(T, N, device):
+    """float32 operands built the way bench.py::bench_bsp_backward_batched
+    builds them: one problem of bench.py::_belief_problem (numpy, seed 5)
+    broadcast over the batch, q decorrelated by 0.01·N(0, 1) (a seeded torch
+    generator where the bench draws with JAX), λ = 0.1."""
+    from trajopt_torch.core.belief import BeliefCostExpansion, BeliefDynamicsExpansion
+
+    rng = np.random.default_rng(5)
+    b = a = 2
+
+    def spd(d, n, s=1.0):
+        M = rng.standard_normal((n, d, d))
+        return s * np.einsum("nij,nkj->nik", M, M) + d * np.eye(d)
+
+    n = rng.standard_normal
+    one_cost = dict(Q=spd(b, T + 1), q=n((T + 1, b)), R=spd(a, T + 1, 0.5), r=n((T + 1, a)),
+                    P=0.1 * n((T + 1, b, a)), p=n((T + 1, b * b)))
+    one_dyn = dict(F=np.eye(b) + 0.05 * n((T, b, b)), G=0.1 * n((T, b, a)),
+                   X=0.01 * n((T, b * b, b)), Y=0.01 * n((T, b * b, b * b)),
+                   Z=0.01 * n((T, b * b, a)), T=0.01 * n((T, b * b, b)),
+                   U=0.01 * n((T, b * b, b * b)), V=0.01 * n((T, b * b, a)))
+    kw = dict(dtype=torch.float32, device=device)
+
+    def batch(x):
+        return torch.as_tensor(x, **kw).expand(N, *x.shape).contiguous()
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    cost = {k: batch(v) for k, v in one_cost.items()}
+    cost["q"] = cost["q"] + 0.01 * torch.randn(cost["q"].shape, generator=gen, **kw)
+    return (BeliefCostExpansion(**cost), BeliefDynamicsExpansion(**{k: batch(v) for k, v in
+                                                                     one_dyn.items()}),
+            torch.full((N,), 0.1, **kw))
+
+
+def check_k8_case(label, packed, lam, reg, tol, flagged):
+    """K8 against its plain version: the instances the guard never touched
+    within ``tol`` of the largest entry, the flags equal (and ``flagged`` of
+    them set, when given), the flagged instances' finite entries in the same
+    places."""
+    from trajopt_torch.core import cuda_belief
+
+    out = cuda_belief.cuda_bsp_backward_packed(packed, lam, reg)
+    ref = cuda_belief.bsp_backward_plain(packed, lam, reg)
+    torch.cuda.synchronize()
+    same_flags(f"K8 {label} diverged", out[6], ref[6])
+    if flagged is not None and int(out[6].sum()) != flagged:
+        fail(f"K8 {label}: {int(out[6].sum())} instances flagged, not {flagged}")
+    good = ~out[6]
+    errs = []
+    for name, a, b in zip(("K", "kff", "S", "s", "tau", "dS"), out, ref):
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+            fail(f"K8 {label} {name}: non-finite entries in other places")
+        errs.append(errors(f"K8 {label} {name}", a[..., good], b[..., good], tol))
+    return errs[0]
+
+
+def check_k8(device):
+    """K8 against its plain version: float64 at small sizes for (b, a) = (2,
+    2) and (4, 2), reg ∈ {1, 2}, λ alternating 0 and 3.7, instance 0 not
+    positive definite; float32 at the bench's backward shape."""
+    from trajopt_torch.core.cuda_belief import pack_belief
+
+    # the same IEEE operations in the same order (-fmad=false): rounding only
+    log("K8 checks: float64, N=37, T=9, (b, a) ∈ {(2, 2), (4, 2)}, λ ∈ {0, 3.7}, tolerance 1e-12")
+    lam = torch.as_tensor(np.where(np.arange(37) % 2, 3.7, 0.0), dtype=torch.float64,
+                          device=device)
+    for b in (2, 4):
+        for reg in (1, 2):
+            cost, dyn = belief_problem(37, 9, b, 2, b + reg, torch.float64, device, bad=True)
+            check_k8_case(f"f64 b={b} reg={reg}", pack_belief(cost, dyn), lam, reg, 1e-12, 1)
+    log(f"K8 checks: float32 at the bench's shape, T={T_BSP}, N={N_BSP}, b=a=2, λ=0.1, "
+        "tolerance 1e-4")
+    cost, dyn, lam = bench_belief_problem(T_BSP, N_BSP, device)
+    packed = pack_belief(cost, dyn)
+    err = check_k8_case(f"f32 T={T_BSP} N={N_BSP}", packed, lam, 1, 1e-4, 0)
+    return packed, lam, err
+
+
+def k8_row(label, packed, lam, launches, err, card):
+    from trajopt_torch.core import cuda_belief
+
+    T, b, N = packed["q"].shape
+    a = packed["r"].shape[1]
+    out = cuda_belief.cuda_bsp_backward_packed(packed, lam, 1)
+    moved = nbytes(*packed.values(), lam, *out)
+    ops = N * k8_operations(T, b, a, 1)
+    call = lambda: cuda_belief.cuda_bsp_backward_packed(packed, lam, 1)  # noqa: E731
+    device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 20)
+    bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    row = {
+        "name": "K8 bsp_backward", "route": "cuda", "source": "trajopt_torch/csrc/belief.cu",
+        "replaces": "trajopt_tpu/core/pallas_belief.py:54", "launches": launches,
+        "max_abs_err": err, "ms": device_ms, "call_ms": time_cuda(call, 20),
+        "plain_ms": time_cuda(lambda: cuda_belief.bsp_backward_plain(packed, lam, 1), 1),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # no single PyTorch call computes a belief-value recursion
+        "library_ms": None,
+    }
+    log(json.dumps({"metric": "kernel", "shape": f"{label}, T={T} N={N} b={b} a={a}", **row,
+                    "enqueue_ms_per_call": enqueue_ms / 20, "bytes": moved, "operations": ops,
+                    "bytes_ms": bytes_ms, "ops_ms": ops_ms, "gpu": card}))
+    return row
+
+
+def bsp_solver_phase(device, card, wrappers):
+    """make_bsp_solver_batched with engine="cuda" on LightDark at N=4096,
+    T=25, 10 iterations: the K8 launches, finite traces, the scan engine on
+    the first 64 instances; ms per outer iteration; the first iteration's K8
+    operands."""
+    import trajopt_torch
+    from trajopt_torch.core.cuda_belief import pack_belief
+    from trajopt_torch.parallel.bsp import make_bsp_solver_batched
+
+    env = trajopt_torch.make("LightDark-TO-v0")
+    kw = dict(dtype=torch.float32, device=device)
+    rng = np.random.default_rng(9)
+    mu0, sigma0 = env.init()
+    mu0s = torch.as_tensor(mu0.numpy() + 0.5 * rng.standard_normal((N_BSP, 2)), **kw)
+    sigma0s = sigma0.to(**kw).expand(N_BSP, 2, 2).contiguous()
+
+    def solver(engine):
+        return make_bsp_solver_batched(env, T_BSP, nb_iter=BSP_ITER, engine=engine, **kw)
+
+    solve = solver("cuda")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    state, trace = solve(mu0s, sigma0s)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(json.dumps({"bsp_solver_launches": launches, "lambda_trials": solve.trials,
+                    "first_solve_s": first_s}))
+    if launches["K8"] != solve.trials or solve.trials < BSP_ITER:
+        fail(f"the batched BSP solver launched K8 {launches['K8']} times for its "
+             f"{solve.trials} λ trials in {BSP_ITER} iterations")
+    if any(v for k, v in launches.items() if k != "K8"):
+        fail("the batched BSP solver launched another kernel than K8")
+    if not bool(torch.isfinite(trace).all()):
+        fail("non-finite batched BSP traces")
+
+    # the scan engine (no kernel) on the first instances: instances are
+    # independent, so the full run's first 64 are theirs; the JAX package's
+    # own device tolerance (tests/test_tpu.py:62)
+    for w in wrappers.values():
+        w.launches = 0
+    _, scan_trace = solver("scan")(mu0s[:N_BSP_SCAN], sigma0s[:N_BSP_SCAN])
+    torch.cuda.synchronize()
+    if any(w.launches for w in wrappers.values()):
+        fail("the scan engine launched a kernel")
+    got, want = trace[:, :N_BSP_SCAN].double(), scan_trace.double()
+    excess = ((got - want).abs() - (1e-4 + 1e-4 * want.abs())).max().item()
+    rel = ((got - want).abs() / want.abs()).max().item()
+    ret0 = solve.init(mu0s, sigma0s).last_return
+    log(json.dumps({"bsp_mean_initial_return": ret0.double().mean().item(),
+                    "bsp_mean_final_return": trace[-1].double().mean().item(),
+                    "done": int(state.done.sum()), "cuda_vs_scan_max_rel": rel,
+                    "tol": "rtol 1e-4, atol 1e-4"}))
+    if excess > 0:
+        fail(f"batched BSP cuda and scan traces differ beyond rtol/atol 1e-4 (rel {rel:.3e})")
+
+    state0 = solve.init(mu0s, sigma0s)
+    iter_ms = time_cuda(lambda: solve.iteration(state0), 3)
+    log(json.dumps({
+        "metric": "bsp_solver", "config": f"LightDark-TO-v0 T={T_BSP} N={N_BSP} "
+        f"nb_iter={BSP_ITER} engine=cuda float32", "ms_per_outer_iteration": iter_ms,
+        "instance_iterations_per_s": N_BSP * 1e3 / iter_ms,
+        "k8_launches_per_outer_iteration": launches["K8"] / BSP_ITER,
+        "first_solve_s": first_s, "gpu": card}))
+    from trajopt_torch.core.belief import belief_cost_expansion, belief_dynamics_expansion
+
+    dyn = belief_dynamics_expansion(env, state0.bref_mu[:, :T_BSP], state0.bref_sigma[:, :T_BSP],
+                                    state0.uref)
+    cost = belief_cost_expansion(env, state0.bref_mu, state0.bref_sigma, state0.uref)
+    return pack_belief(cost, dyn), state0.lmbda.contiguous(), launches["K8"]
+
+
+class PlainBSP:
+    """K9's plain version (parallel/bsp's solver with the ladder engine, a
+    batch of one), counting the iterations that ran before each solve was
+    done: the work the bound counts."""
+
+    def __init__(self, env, cfg, device, dtype):
+        from trajopt_torch.core.cuda_bsp import plain_solver
+
+        self.solver = plain_solver(env, cfg, device, dtype)
+        self.nb_iter, self.worked = cfg.nb_iter, 0
+
+    def __call__(self, mu0, sigma0):
+        from trajopt_torch.parallel.bsp import BSPState
+
+        state = self.solver.init(mu0[None], sigma0[None])
+        trace = []
+        for _ in range(self.nb_iter):
+            if not bool(state.done.all()):
+                state = self.solver.iteration(state)
+                self.worked += 1
+            trace.append(state.last_return)
+        return BSPState(*(x[0] for x in state)), torch.stack(trace)[:, 0]
+
+
+def check_k9(device):
+    """K9 against its plain version at horizon 25, 10 iterations: the
+    default, reg=2 and goal weights mu_w=(-2, -2) (an indefinite value that
+    drives the λ ladder), float64 and float32."""
+    import trajopt_torch
+    from trajopt_torch.core.cuda_bsp import bsp_config, cuda_bsp_solve
+
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        # float64: the kernel's expansion (dual numbers) and the plain
+        # version's (torch.func) round differently, 10 iterations of it;
+        # float32: the same, and the jitters and the ladder's first-success
+        # choice make the solve sensitive to rounding (observed 4e-5)
+        log(f"K9 checks: {dtype}, T={T_BSP}, nb_iter={BSP_ITER}, tolerance {tol:.0e}")
+        for label, env_kw, kw in (("default", {}, {}), ("reg=2", {}, {"reg": 2}),
+                                  ("mu_w=(-2,-2)", {"mu_w": (-2.0, -2.0)}, {})):
+            env = trajopt_torch.make("LightDark-TO-v0", **env_kw)
+            cfg = bsp_config(env, T_BSP, BSP_ITER, **kw)
+            mu0, sigma0 = (v.to(dtype=dtype, device=device) for v in env.init())
+            state, trace = cuda_bsp_solve(env, cfg, mu0, sigma0)
+            plain = PlainBSP(env, cfg, device, dtype)
+            t0 = time.perf_counter()
+            pstate, ptrace = plain(mu0, sigma0)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            errs = [errors(f"K9 {dtype} {label} {f}", getattr(state, f), getattr(pstate, f), tol)
+                    for f in ("bref_mu", "bref_sigma", "uref", "K", "kff", "lmbda", "dlmbda",
+                              "last_return")]
+            errors(f"K9 {dtype} {label} trace", trace, ptrace, tol)
+            if bool(state.done) != bool(pstate.done):
+                fail(f"K9 {dtype} {label}: done differs")
+            out[(dtype, label)] = dict(err=errs[2], plain_ms=plain_ms, worked=plain.worked,
+                                       cfg=cfg, env=env, mu0=mu0, sigma0=sigma0)
+    return out
+
+
+def k9_phase(device, card, wrappers, checks):
+    """The single-launch solve as a user calls it (make_cuda_bsp_solve from
+    the env's initial belief, float32, horizon 25, 10 iterations): the K9
+    launch, its device time and bound."""
+    import trajopt_torch
+    from trajopt_torch.core.cuda_bsp import make_cuda_bsp_solve
+
+    env = trajopt_torch.make("LightDark-TO-v0")
+    solve = make_cuda_bsp_solve(env, T_BSP, BSP_ITER)
+    mu0, sigma0 = (v.to(dtype=torch.float32, device=device) for v in env.init())
+    for w in wrappers.values():
+        w.launches = 0
+    state, trace = solve(mu0, sigma0)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if launches["K9"] != 1 or any(v for k, v in launches.items() if k != "K9"):
+        fail(f"make_cuda_bsp_solve launched {launches}, not K9 once")
+    if not bool(torch.isfinite(trace).all()) or not trace[-1] < trace[0]:
+        fail(f"K9 trace {trace.tolist()} is not finite and decreasing")
+    c = checks[(torch.float32, "default")]
+    nA = len(c["cfg"].alphas)
+    call = lambda: solve(mu0, sigma0)  # noqa: E731
+    device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 20)
+    ops = k9_operations(T_BSP, nA, 1, c["worked"])
+    moved = nbytes(mu0, sigma0, *state[:5], trace) + 4 * 4
+    bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    row = {
+        "name": "K9 bsp_solve", "route": "cuda", "source": "trajopt_torch/csrc/bsp.cu",
+        "replaces": "trajopt_tpu/core/pallas_bsp.py:982", "launches": launches["K9"],
+        "max_abs_err": c["err"], "ms": device_ms, "call_ms": time_cuda(call, 20),
+        "plain_ms": c["plain_ms"], "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # no single PyTorch call computes a BSP-iLQR solve
+        "library_ms": None,
+    }
+    log(json.dumps({"metric": "kernel", "shape": f"LightDark T={T_BSP} nb_iter={BSP_ITER} "
+                    f"(iterations worked {c['worked']}) batch 1, one block of 128 threads",
+                    **row, "enqueue_ms_per_call": enqueue_ms / 20, "bytes": moved,
+                    "operations": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                    "final_return": trace[-1].item(), "gpu": card}))
+    return row
+
+
+def bsp_episode_phase(device, card, wrappers):
+    """The light-dark MPC episode: K10 against its plain version and the scan
+    runner on the same normals in float64 over 5 steps; the scan runner's
+    rate in float32 over 5 steps; then bench.py:447's episode (horizon 25, 50
+    steps, 10 iterations, float32) with engine="auto", which must resolve to
+    K10, held against its plain version over all 50 steps; its rate, device
+    time and bound."""
+    import trajopt_torch
+    from trajopt_torch.core import cuda_bsp
+    from trajopt_torch.parallel.bsp import (
+        bsp_episode_normals,
+        make_bsp_mpc_runner,
+        run_bsp_episode,
+    )
+
+    env = trajopt_torch.make("LightDark-TO-v0")
+    S = BSP_CHECK_STEPS
+    k64 = dict(dtype=torch.float64, device=device)
+    x0 = env.reset_state().to(**k64)
+    normals = bsp_episode_normals(env, torch.Generator(device=device).manual_seed(1), S, **k64)
+    out = make_bsp_mpc_runner(env, T_BSP, S, nb_iter=BSP_ITER, engine="cuda", **k64)(
+        x0, normals=normals)
+    cfg = cuda_bsp.bsp_config(env, T_BSP, BSP_ITER, S)
+    plain = cuda_bsp.bsp_episode_plain(env, cfg, x0, *normals)
+    scan = make_bsp_mpc_runner(env, T_BSP, S, nb_iter=BSP_ITER, engine="scan", **k64)(
+        x0, normals=normals)
+    torch.cuda.synchronize()
+    # float64: the kernel's and the plain version's expansions round
+    # differently (1e-15); the scan runner's λ while-loop against the ladder
+    # likewise
+    log(f"K10 checks: float64, horizon {T_BSP}, {S} steps, nb_iter={BSP_ITER}, tolerance 1e-9")
+    for name, a, p_, s in zip(("states", "belief means", "belief covariances", "actions",
+                               "costs"), out, plain, scan):
+        errors(f"K10 {name} vs plain", a, p_, 1e-9)
+        errors(f"K10 {name} vs scan runner", a, s, 1e-9)
+
+    kw = dict(dtype=torch.float32, device=device)
+    x0 = env.init()[0].to(**kw)            # bench.py:447 starts the true state at μ₀
+    run_scan = make_bsp_mpc_runner(env, T_BSP, S, nb_iter=BSP_ITER, engine="scan", **kw)
+    short = bsp_episode_normals(env, torch.Generator(device=device).manual_seed(2), S, **kw)
+    t0 = time.perf_counter()
+    scan32 = run_scan(x0, normals=short)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+
+    run = make_bsp_mpc_runner(env, T_BSP, BSP_STEPS, nb_iter=BSP_ITER, engine="auto", **kw)
+    if run.engine != "cuda":
+        fail(f"engine='auto' resolved to {run.engine!r} on the card, not 'cuda'")
+    full = bsp_episode_normals(env, torch.Generator(device=device).manual_seed(2), BSP_STEPS,
+                               **kw)
+    for w in wrappers.values():
+        w.launches = 0
+    xs, mus, sigmas, us, cs = run(x0, normals=full)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if launches["K10"] != 1 or any(v for k, v in launches.items() if k != "K10"):
+        fail(f"the episode launched {launches}, not K10 once")
+    if not all(bool(torch.isfinite(t).all()) for t in (xs, mus, sigmas, us, cs)):
+        fail("non-finite belief-MPC episode")
+    mu_end = mus[-1].abs().max().item()
+    if not mu_end < 0.1:
+        fail(f"the belief mean ended {mu_end:.3f} from the goal")
+    # float32 through a closed loop, the first steps against the scan runner:
+    # reported, not gated (the plain episode below holds the kernel)
+    f32_rel = max(((a[:b.shape[0]].double() - b.double()).abs().max()
+                   / b.double().abs().max().clamp(min=1e-30)).item()
+                  for a, b in zip((xs, mus, us), (scan32[0], scan32[1], scan32[3])))
+
+    # the same episode through K10's plain version, on the same x0 and
+    # normals: the kernel's expansion (dual numbers) and the plain one
+    # (torch.func) round differently, and the closed loop carries that from
+    # step to step; 1e-3 of the largest entry, as for K9 in float32 (the
+    # differences read are of order 1e-5 and die out between replans, no
+    # ladder choice flipped)
+    cfg32 = cuda_bsp.bsp_config(env, T_BSP, BSP_ITER, BSP_STEPS)
+    plain32 = PlainBSP(env, cfg32, device, torch.float32)
+    t0 = time.perf_counter()
+    ref32 = run_bsp_episode(env, plain32, x0, full)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"K10 checks: float32, horizon {T_BSP}, {BSP_STEPS} steps, nb_iter={BSP_ITER}, "
+        "tolerance 1e-3")
+    err = [errors(f"K10 f32 {name} vs plain", a, p_, 1e-3)
+           for name, a, p_ in zip(("states", "belief means", "belief covariances", "actions",
+                                   "costs"), (xs, mus, sigmas, us, cs), ref32)][3]
+
+    call = lambda: run(x0, normals=full)  # noqa: E731
+    device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 5)
+    nA = len(cfg32.alphas)
+    ops = (k9_operations(T_BSP, nA, BSP_STEPS, plain32.worked)
+           + BSP_STEPS * BSP_OPS["episode_step"])
+    moved = nbytes(x0, *full, xs, mus, sigmas, us, cs)
+    bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    row = {
+        "name": "K10 bsp_episode", "route": "cuda", "source": "trajopt_torch/csrc/bsp.cu",
+        "replaces": "trajopt_tpu/core/pallas_bsp.py:1054", "launches": launches["K10"],
+        "max_abs_err": err, "ms": device_ms, "call_ms": time_cuda(call, 3),
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # no single PyTorch call computes a belief-MPC episode
+        "library_ms": None,
+    }
+    log(json.dumps({"metric": "kernel", "shape": f"LightDark horizon={T_BSP} steps={BSP_STEPS} "
+                    f"nb_iter={BSP_ITER} (solver iterations worked {plain32.worked} of "
+                    f"{BSP_STEPS * BSP_ITER}) batch 1", **row,
+                    "enqueue_ms_per_call": enqueue_ms / 5, "bytes": moved, "operations": ops,
+                    "bytes_ms": bytes_ms, "ops_ms": ops_ms, "gpu": card}))
+    log(json.dumps({
+        "metric": "bsp_mpc", "config": f"LightDark-TO-v0 horizon={T_BSP} steps={BSP_STEPS} "
+        f"nb_iter={BSP_ITER} engine=auto->cuda float32 x0=mu0",
+        "control_steps_per_s": BSP_STEPS / (device_ms / 1e3),
+        "episode_ms": device_ms, "scan_runner_control_steps_per_s": S / scan_s,
+        "scan_runner_steps_timed": S, "final_belief_mean": mus[-1].tolist(),
+        "final_state": xs[-1].tolist(), "belief_cost_sum": cs.double().sum().item(),
+        "f32_first_steps_vs_scan_max_rel": f32_rel, "gpu": card}))
+    return row
+
+
 def main():
     global torch
     import torch
@@ -873,6 +1387,7 @@ def main():
     dev = torch.device("cuda")
 
     # 1. the card
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
@@ -1034,6 +1549,7 @@ def main():
                         "bytes": moved[k], "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                         "gpu": card}))
 
+    log(f"[{time.perf_counter() - t_start:.0f} s] K5 and the single-problem paths")
     # 6. K5 against its plain version
     from trajopt_torch.core.cuda_pscan import cuda_pilqr_backward, pilqr_backward_plain
     from trajopt_torch.envs.base import wrap_angle
@@ -1094,7 +1610,7 @@ def main():
     if mpc_launches["K5"] == 0:
         fail("the MPC path did not launch K5")
     log(json.dumps({"metric": "mpc", "config": "Pendulum-TO-v0 dt=0.05 uw=1e-5 horizon=25 "
-                    "steps=100 nb_iter=10 backward=cuda-pscan float32",
+                    f"steps={MPC_STEPS} nb_iter=10 backward=cuda-pscan float32",
                     "control_steps_per_s": MPC_STEPS / mpc_s, "seconds": mpc_s,
                     "k5_launches_per_step": mpc_launches["K5"] / MPC_STEPS, "gpu": card}))
 
@@ -1170,6 +1686,7 @@ def main():
         if T == T_REPLAN:
             rows.append(row)
 
+    log(f"[{time.perf_counter() - t_start:.0f} s] GPS phases")
     # 9-11. GPS: K6/K7 against their plain versions, the solver path, the
     # GPS-MPC farm, the kernels' timings
     from trajopt_torch.core.cuda_gps import cuda_gps_backward_packed, cuda_gps_forward_kl_packed
@@ -1187,7 +1704,30 @@ def main():
                     dict(zip(("K6", "K7"), dual_errs)), card)
     rows += [gps_rows["K6"], gps_rows["K7"]]
 
-    # 12. the kernels line, then the device line last
+    # 12-15. belief space: K8 against its plain version, the batched solver
+    # path, K9 against its plain version and as a user calls it, the
+    # belief-MPC episode through K10
+    from trajopt_torch.core.cuda_belief import cuda_bsp_backward_packed
+    from trajopt_torch.core.cuda_bsp import cuda_bsp_episode, cuda_bsp_solve
+
+    wrappers.update(K8=cuda_bsp_backward_packed, K9=cuda_bsp_solve, K10=cuda_bsp_episode)
+    log(f"[{time.perf_counter() - t_start:.0f} s] belief phases")
+    bench_packed, bench_lam, k8_err = check_k8(dev)
+    solver_packed, solver_lam, k8_launches = bsp_solver_phase(dev, card, wrappers)
+    log("K8 checks: float32 on the batched solver's first backward operands, tolerance 1e-4")
+    solver_err = check_k8_case(f"f32 solver path T={T_BSP} N={N_BSP}", solver_packed,
+                               solver_lam, 1, 1e-4, None)
+    k8_row("bench backward shape (bench.py:511)", bench_packed, bench_lam, k8_launches, k8_err,
+           card)
+    rows.append(k8_row("batched solver's first backward", solver_packed, solver_lam,
+                       k8_launches, solver_err, card))
+    log(f"[{time.perf_counter() - t_start:.0f} s] K9 checks")
+    rows.append(k9_phase(dev, card, wrappers, check_k9(dev)))
+    log(f"[{time.perf_counter() - t_start:.0f} s] belief-MPC episode")
+    rows.append(bsp_episode_phase(dev, card, wrappers))
+    log(f"[{time.perf_counter() - t_start:.0f} s] done")
+
+    # 16. the kernels line, then the device line last
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

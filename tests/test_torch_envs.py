@@ -129,8 +129,8 @@ def test_linearization_at_saturation_matches(name, kw):
 
 def test_registry_and_fields():
     assert set(trajopt_torch.registered()) == {
-        "Cartpole-TO-v0", "Cartpole-TO-v1", "LQR-TO-v0", "LQR-TO-v1", "LQR-TO-v2",
-        "Pendulum-TO-v0", "Pendulum-TO-v1",
+        "Car-TO-v0", "Cartpole-TO-v0", "Cartpole-TO-v1", "LightDark-TO-v0", "LQR-TO-v0",
+        "LQR-TO-v1", "LQR-TO-v2", "Pendulum-TO-v0", "Pendulum-TO-v1",
     }
     for name in trajopt_torch.registered():
         jenv = trajopt_tpu.make(name)

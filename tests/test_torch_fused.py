@@ -28,6 +28,14 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-9, atol=1e-11)
 
 
+def _compiled(f, *args):
+    """``jax.jit(f)`` compiled for ``args`` without XLA's backend (LLVM)
+    optimizations: a shorter compile, rounding that differs from the default
+    compile's at the 1e-14 level."""
+    return jax.jit(f).lower(*args).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+
+
 def _trajectory(jenv, N, T, seed, saturate=False):
     """Reference trajectory rolled out with the JAX env; ``saturate`` puts
     actions exactly at ±umax on half the steps."""
@@ -63,17 +71,21 @@ def test_k1_plain_matches_pallas_fused_interpret(name, kw, reg, lam, saturate, a
     lam_v = np.full(N, lam)
     ulast = np.concatenate([np.zeros_like(uref[:, :1]), uref[:, :-1]], axis=1)
 
-    # called the way tests/test_pallas_fused.py calls the fused kernel
-    w_j = jax_weighting(T, activation)
+    # called the way tests/test_pallas_fused.py calls the fused kernel, the
+    # lane packing and the kernel compiled as one program
     n_pad_j = 128
-    Kl, kffl, dVl, badl = pallas_ilqr_backward_fused(
-        jenv,
-        _to_lanes(jnp.asarray(xref[:, :T]), n_pad_j), _to_lanes(jnp.asarray(uref), n_pad_j),
-        _to_lanes(jnp.asarray(ulast), n_pad_j),
-        _to_lanes(jnp.asarray(xref[:, T])[:, None], n_pad_j)[0],
-        w_j, pack_scalar(jnp.asarray(lam_v), n_pad_j), reg, time_chunk=1, interpret=True,
-    )
-    pol_j, dV_j, div_j = unpack_lanes(Kl, kffl, dVl, badl, N, T, jenv.dm_state, jenv.dm_act)
+
+    def reference(xref, uref, ulast, w_j, lam_v):
+        Kl, kffl, dVl, badl = pallas_ilqr_backward_fused(
+            jenv, _to_lanes(xref[:, :T], n_pad_j), _to_lanes(uref, n_pad_j),
+            _to_lanes(ulast, n_pad_j), _to_lanes(xref[:, T][:, None], n_pad_j)[0],
+            w_j, pack_scalar(lam_v, n_pad_j), reg, time_chunk=1, interpret=True,
+        )
+        return unpack_lanes(Kl, kffl, dVl, badl, N, T, jenv.dm_state, jenv.dm_act)
+
+    args = (*(jnp.asarray(a) for a in (xref, uref, ulast)), jax_weighting(T, activation),
+            jnp.asarray(lam_v))
+    pol_j, dV_j, div_j = _compiled(reference, *args)(*args)
 
     n_pad = lane_pad(N)
     w_t = make_weighting(T, activation, device="cpu", dtype=torch.float64)

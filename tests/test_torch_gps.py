@@ -40,6 +40,14 @@ STATE_TOL = dict(rtol=1e-8, atol=1e-12)
 F64 = dict(device="cpu", dtype=torch.float64)
 
 
+def _compiled(f, *args):
+    """``jax.jit(f)`` compiled for ``args`` without XLA's backend (LLVM)
+    optimizations: a shorter compile, rounding that differs from the default
+    compile's at the 1e-14 level."""
+    return jax.jit(f).lower(*args).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+
+
 def _envs(name, **kw):
     jenv = trajopt_tpu.make(name, **kw)
     return jenv, env_from_fields(name, dataclasses.asdict(jenv))
@@ -156,7 +164,7 @@ def single_ref():
         jenv = trajopt_tpu.make(name, **env_kw)
         solvers.append(jax_gps.make_mbgps_solver(jenv, T, **SINGLE_KW, **kw))
         inits.append(tuple(jnp.asarray(np.asarray(a)) for a in jenv.init()))
-    outs = jax.jit(lambda a: [solve(key, *x) for solve, x in zip(solvers, a)])(inits)
+    outs = _compiled(lambda a: [solve(key, *x) for solve, x in zip(solvers, a)], inits)(inits)
     kff0 = 1e-4 * np.asarray(jax.random.normal(key, (T, 1), jnp.float64))
     return T, kff0, [(_np(x), _np(o)) for x, o in zip(inits, outs)]
 
@@ -188,9 +196,10 @@ def batched_ref():
     mu0, sigma0 = jenv.init()
     mu0s = np.tile(np.asarray(mu0), (N, 1)) + 0.05 * np.arange(N)[:, None]
     sigma0s = np.tile(np.asarray(sigma0), (N, 1, 1))
-    solve = jax.jit(jax_gps.make_mbgps_solver_batched(jenv, T, nb_iter=2, kl_bound=2.0,
-                                                      bisect_iters=8, engine="scan"))
-    jstate, jtrace = solve(keys, jnp.asarray(mu0s), jnp.asarray(sigma0s))
+    solve = jax_gps.make_mbgps_solver_batched(jenv, T, nb_iter=2, kl_bound=2.0, bisect_iters=8,
+                                              engine="scan")
+    args = (keys, jnp.asarray(mu0s), jnp.asarray(sigma0s))
+    jstate, jtrace = _compiled(solve, *args)(*args)
     kff0 = 1e-4 * np.asarray(jax.vmap(lambda k: jax.random.normal(k, (T, 1), jnp.float64))(keys))
     return dict(tenv=tenv, T=T, mu0s=mu0s, sigma0s=sigma0s, kff0=kff0, jstate=jstate,
                 jtrace=np.asarray(jtrace))

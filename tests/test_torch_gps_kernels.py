@@ -38,6 +38,14 @@ PARTS = {"cost": ("QuadraticCost", ("Cxx", "cx", "Cuu", "cu", "Cxu", "c0")),
          "old": ("LinearGaussianPolicy", ("K", "kff", "sigma"))}
 
 
+def _compiled(f, *args):
+    """``jax.jit(f)`` compiled for ``args`` without XLA's backend (LLVM)
+    optimizations: a shorter compile, rounding that differs from the default
+    compile's at the 1e-14 level."""
+    return jax.jit(f).lower(*args).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+
+
 @functools.lru_cache(maxsize=None)
 def _problem(dx, du):
     """Batch-leading numpy operands; for du = 1, instance 2's action cost at
@@ -104,12 +112,15 @@ def _scan(dims):
 @functools.lru_cache(maxsize=None)
 def _pallas(dims):
     """The interpret-mode Pallas kernels on the problem of ``dims``: K6's
-    outputs, then K7's on K6's policy."""
-    cost, dyn, old, alpha, mu0, sigma0 = _containers(_problem(*dims), jt, jnp.asarray)
-    bwd = jax_pallas.pallas_gps_backward(cost, dyn, old, alpha, time_chunk=1, interpret=True)
-    fwd = jax_pallas.pallas_gps_forward_kl(dyn, bwd[0], old, mu0, sigma0, time_chunk=1,
-                                           interpret=True)
-    return jax.tree.map(np.asarray, (bwd, fwd))
+    outputs, then K7's on K6's policy, compiled as one program."""
+    def kernels(cost, dyn, old, alpha, mu0, sigma0):
+        bwd = jax_pallas.pallas_gps_backward(cost, dyn, old, alpha, time_chunk=1, interpret=True)
+        fwd = jax_pallas.pallas_gps_forward_kl(dyn, bwd[0], old, mu0, sigma0, time_chunk=1,
+                                               interpret=True)
+        return bwd, fwd
+
+    args = _containers(_problem(*dims), jt, jnp.asarray)
+    return jax.tree.map(np.asarray, _compiled(kernels, *args)(*args))
 
 
 def _close(got, want, tol=TOL):

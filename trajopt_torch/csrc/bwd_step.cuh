@@ -9,9 +9,7 @@
 
 #include <math.h>
 
-template <typename S> __device__ __forceinline__ bool finite_(S x) { return isfinite(x); }
-__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+#include "scalar.cuh"
 
 // C = A B for A (n, k), B (k, m).
 template <typename S, int N, int K, int M>

@@ -1,10 +1,15 @@
-// Forward-mode dual numbers for the in-kernel Jacobians of the fused iLQR
-// backward (K1): a value and N tangents, so one evaluation of the env's RK4
-// step gives all dx + du columns of A and B at once (the counterpart of
-// jax.linearize over the tile dynamics in trajopt_tpu/core/pallas_fused.py).
+// Forward-mode dual numbers for in-kernel Jacobians: a value and N tangents,
+// so one evaluation of a function gives all N columns of its Jacobian at once
+// (the counterpart of jax.linearize over the tile code of the TPU kernels).
+// K1 (fused_backward.cu) differentiates the env's RK4 step over dx + du
+// tangents.  Duals nest: Dual<Dual<S, M>, N> carries second derivatives, as
+// the BSP kernels (bsp.cu) need for the Jacobian of an EKF step, which itself
+// holds the Jacobians of the dynamics and the observation model.
 #pragma once
 
 #include <math.h>
+
+#include "scalar.cuh"
 
 template <typename S, int N>
 struct Dual {
@@ -17,9 +22,17 @@ struct Dual {
   }
 };
 
-// The real type under a (possibly dual) scalar type.
+// The real type under a (possibly nested) dual scalar type.
 template <typename T> struct RealOf { using type = T; };
-template <typename S, int N> struct RealOf<Dual<S, N>> { using type = S; };
+template <typename S, int N> struct RealOf<Dual<S, N>> { using type = typename RealOf<S>::type; };
+
+// The real value of a (possibly nested) dual, for comparisons.
+template <typename S>
+__device__ __forceinline__ S value_of(S x) { return x; }
+template <typename S, int N>
+__device__ __forceinline__ typename RealOf<S>::type value_of(const Dual<S, N>& a) {
+  return value_of(a.v);
+}
 
 template <typename S, int N>
 __device__ __forceinline__ Dual<S, N> operator+(const Dual<S, N>& a, const Dual<S, N>& b) {
@@ -67,9 +80,10 @@ __device__ __forceinline__ Dual<S, N> operator/(const Dual<S, N>& a, const Dual<
   return r;
 }
 
-// Mixed with a plain constant (the env's and the integrator's coefficients).
+// Mixed with a plain constant (the env's and the integrator's coefficients);
+// the constant is of the real type under any nesting.
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> operator*(S c, const Dual<S, N>& a) {
+__device__ __forceinline__ Dual<S, N> operator*(typename RealOf<S>::type c, const Dual<S, N>& a) {
   Dual<S, N> r;
   r.v = c * a.v;
 #pragma unroll
@@ -78,7 +92,16 @@ __device__ __forceinline__ Dual<S, N> operator*(S c, const Dual<S, N>& a) {
 }
 
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> operator/(const Dual<S, N>& a, S c) {
+__device__ __forceinline__ Dual<S, N> operator*(const Dual<S, N>& a, typename RealOf<S>::type c) {
+  Dual<S, N> r;
+  r.v = a.v * c;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * c;
+  return r;
+}
+
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> operator/(const Dual<S, N>& a, typename RealOf<S>::type c) {
   Dual<S, N> r;
   r.v = a.v / c;
 #pragma unroll
@@ -87,7 +110,7 @@ __device__ __forceinline__ Dual<S, N> operator/(const Dual<S, N>& a, S c) {
 }
 
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> operator-(S c, const Dual<S, N>& a) {
+__device__ __forceinline__ Dual<S, N> operator-(typename RealOf<S>::type c, const Dual<S, N>& a) {
   Dual<S, N> r;
   r.v = c - a.v;
 #pragma unroll
@@ -96,16 +119,23 @@ __device__ __forceinline__ Dual<S, N> operator-(S c, const Dual<S, N>& a) {
 }
 
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> operator-(const Dual<S, N>& a, S c) {
+__device__ __forceinline__ Dual<S, N> operator-(const Dual<S, N>& a, typename RealOf<S>::type c) {
   Dual<S, N> r = a;
   r.v = a.v - c;
   return r;
 }
 
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> operator+(const Dual<S, N>& a, S c) {
+__device__ __forceinline__ Dual<S, N> operator+(const Dual<S, N>& a, typename RealOf<S>::type c) {
   Dual<S, N> r = a;
   r.v = a.v + c;
+  return r;
+}
+
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> operator+(typename RealOf<S>::type c, const Dual<S, N>& a) {
+  Dual<S, N> r = a;
+  r.v = c + a.v;
   return r;
 }
 
@@ -135,6 +165,17 @@ __device__ __forceinline__ Dual<S, N> cos_(const Dual<S, N>& a) {
   return r;
 }
 
+// √a with d√a = da · (½ / √a), jax.lax.sqrt's derivative.
+template <typename S, int N>
+__device__ __forceinline__ Dual<S, N> sqrt_(const Dual<S, N>& a) {
+  Dual<S, N> r;
+  r.v = sqrt_(a.v);
+  const S h = S(0.5) / r.v;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * h;
+  return r;
+}
+
 // jnp.clip's value (NaN passes through) ...
 template <typename S>
 __device__ __forceinline__ S clip_(S x, S lo, S hi) {
@@ -142,12 +183,17 @@ __device__ __forceinline__ S clip_(S x, S lo, S hi) {
 }
 
 // ... and its derivative under JAX's tie rule: max/min split a tie evenly, so
-// the slope is 1 strictly inside, 0.5 exactly at a bound and 0 outside.
+// the slope is 1 strictly inside, 0.5 exactly at a bound and 0 outside.  The
+// slope is constant in x, so nested tangents see the same rule at every
+// level.
 template <typename S, int N>
-__device__ __forceinline__ Dual<S, N> clip_(const Dual<S, N>& a, S lo, S hi) {
+__device__ __forceinline__ Dual<S, N> clip_(const Dual<S, N>& a, typename RealOf<S>::type lo,
+                                            typename RealOf<S>::type hi) {
+  using R = typename RealOf<S>::type;
   Dual<S, N> r;
   r.v = clip_(a.v, lo, hi);
-  const S slope = (a.v > lo && a.v < hi) ? S(1) : ((a.v == lo || a.v == hi) ? S(0.5) : S(0));
+  const R x = value_of(a);
+  const R slope = (x > lo && x < hi) ? R(1) : ((x == lo || x == hi) ? R(0.5) : R(0));
 #pragma unroll
   for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * slope;
   return r;

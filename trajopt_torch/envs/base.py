@@ -5,7 +5,9 @@ functions on tensors with any leading batch dimensions (state last).  The
 tile protocol (``_ode_parts``, ``_periodic_parts``, ``features_parts``) takes
 sequences of per-component tensors, as the JAX package's Pallas kernels take
 lists of VPU tiles; the CUDA kernels of this package write the same physics
-once more as device functions (``csrc/envs.cuh``).
+once more as device functions (``csrc/envs.cuh``, ``csrc/bsp.cu``).
+``TrajEnv`` is fully observed; ``BeliefEnv`` adds an observation model,
+noise covariances and a belief cost for belief-space planning.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, ClassVar
 
 import torch
 from torch import Tensor
@@ -22,42 +24,18 @@ from torch import Tensor
 from ..utils.psd import cholesky
 
 
-class _Clip(torch.autograd.Function):
-    """Clamp with JAX's tie rule: ``jnp.clip`` is max/min, whose derivative
-    splits evenly at a tie, so the slope is 1 strictly inside the bounds, 0.5
-    exactly at a bound and 0 outside.  ``torch.clamp`` gives 1 at a bound.
-    The rule matters because rollouts store clipped actions, so the solver
-    linearizes exactly at ±umax on every saturated step."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(x, lo, hi):
-        return torch.clamp(x, lo, hi)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        x, lo, hi = inputs
-        inside = (x > lo) & (x < hi)
-        tie = (x == lo) | (x == hi)
-        slope = torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0)).to(x.dtype)
-        ctx.save_for_backward(slope)
-        ctx.save_for_forward(slope)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (slope,) = ctx.saved_tensors
-        return grad * slope, None, None
-
-    @staticmethod
-    def jvp(ctx, x_t, lo_t, hi_t):
-        (slope,) = ctx.saved_tensors
-        return x_t * slope
-
-
 def clip(x: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
-    """``jnp.clip(x, lo, hi)`` with JAX's derivative at the bounds."""
-    return _Clip.apply(x, lo, hi)
+    """``jnp.clip(x, lo, hi)`` with JAX's derivative at the bounds.
+
+    ``jnp.clip`` is max then min, whose derivative splits evenly at a tie, so
+    the slope is 1 strictly inside the bounds, 0.5 exactly at a bound and 0
+    outside; ``torch.maximum``/``torch.minimum`` split ties the same way in
+    both AD modes (``torch.clamp`` gives 1 at a bound).  The rule matters
+    because rollouts store clipped actions, so the solver linearizes exactly
+    at ±umax on every saturated step.  Built from the two primitives, the
+    clip has higher derivatives too (the belief expansion differentiates
+    Jacobians of clipped dynamics)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def wrap_angle(x: Tensor) -> Tensor:
@@ -259,9 +237,144 @@ def gaussian(mean: Tensor, chol: Tensor, generator: torch.Generator | None) -> T
     and ``z`` standard normal of ``mean``'s shape, drawn on the generator's
     device (the default generator's when None) and moved to ``mean``'s;
     ``jax.random.multivariate_normal``'s formula."""
-    where = generator.device if generator is not None else mean.device
-    z = torch.randn(mean.shape, generator=generator, dtype=mean.dtype, device=where)
-    return mean + _matvec(chol, z.to(mean.device))
+    return mean + _matvec(chol, standard_normal(mean.shape, generator, mean.dtype, mean.device))
+
+
+def _const(values: tuple, dtype: torch.dtype, device: torch.device) -> Tensor:
+    """A constant tensor of ``values``, made once per dtype and device so that
+    env methods called in loops on the card copy nothing to it.  Inside a
+    ``torch.func`` transform a factory's tensor belongs to that transform's
+    level, so there it is made afresh and not cached."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        return torch.tensor(values, dtype=dtype, device=device)
+    return _const_cached(values, dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _const_cached(values: tuple, dtype: torch.dtype, device: torch.device) -> Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _scaled_eye(scale: float, n: int, dtype: torch.dtype, device: torch.device) -> Tensor:
+    """``scale·I`` of size n (``scale * jnp.eye(n)``)."""
+    return _const(tuple(tuple(scale if i == j else 0.0 for j in range(n)) for i in range(n)),
+                  dtype, device)
+
+
+@dataclass(frozen=True)
+class BeliefEnv:
+    """Base partially-observed environment (counterpart of
+    ``trajopt_tpu/envs/base.py::BeliefEnv``): dynamics, observation model,
+    noise covariances and a belief cost, on tensors with any leading batch
+    dimensions.  Subclasses define ``_ode_parts`` (RK4 dynamics) or override
+    ``dynamics``.
+
+    ``supports_belief_tiles`` is True when ``csrc/bsp.cu`` holds the env's
+    device functions, which the single-launch BSP kernels K9/K10 run (the
+    port's counterpart of the JAX env's tile protocol).  The kernels hold
+    LightDark's only.
+    """
+
+    dt: float
+    state_dim: int
+    belief_dim: int
+    obs_dim: int
+    act_dim: int
+
+    supports_belief_tiles: ClassVar[bool] = False
+
+    def replace(self, **kwargs) -> "BeliefEnv":
+        return dataclasses.replace(self, **kwargs)
+
+    @property
+    def xlim(self) -> Tensor:
+        """State limits ``xmax`` (float64, CPU)."""
+        return torch.tensor(self.xmax, dtype=torch.float64)
+
+    @property
+    def ulim(self) -> Tensor:
+        """Action limits ``umax`` (float64, CPU)."""
+        return torch.tensor(self.umax, dtype=torch.float64)
+
+    def clip_act(self, u: Tensor) -> Tensor:
+        b = _const(self.umax, u.dtype, u.device)
+        return clip(u, -b, b)
+
+    def clip_state(self, x: Tensor) -> Tensor:
+        b = _const(self.xmax, x.dtype, x.device)
+        return clip(x, -b, b)
+
+    def _ode_parts(self, x, u) -> tuple:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not define component-wise dynamics"
+        )
+
+    def _ode(self, x: Tensor, u: Tensor) -> Tensor:
+        return torch.cat(self._ode_parts(_parts(x), _parts(u)), dim=-1)
+
+    def dynamics(self, x: Tensor, u: Tensor) -> Tensor:
+        """Clip the action, one RK4 step of the ODE, clip the state."""
+        return self.clip_state(rk4(self._ode, x, self.clip_act(u), self.dt))
+
+    @property
+    def dyn_sigma(self) -> Tensor:
+        """Process-noise covariance ``dyn_sigma_scale·I`` (float64, CPU)."""
+        return self.dyn_sigma_scale * torch.eye(self.state_dim, dtype=torch.float64)
+
+    @property
+    def obs_sigma(self) -> Tensor:
+        """Observation-noise floor ``obs_sigma_scale·I`` (float64, CPU)."""
+        return self.obs_sigma_scale * torch.eye(self.obs_dim, dtype=torch.float64)
+
+    def dyn_noise(self, x: Tensor, u: Tensor | None = None) -> Tensor:
+        """Process-noise covariance in ``x``'s dtype and device."""
+        return _scaled_eye(float(self.dyn_sigma_scale), self.state_dim, x.dtype, x.device)
+
+    def obs_noise(self, x: Tensor) -> Tensor:
+        """Observation-noise covariance at ``x (..., dx)`` → ``(..., do, do)``."""
+        eye = _scaled_eye(float(self.obs_sigma_scale), self.obs_dim, x.dtype, x.device)
+        return eye.expand(*x.shape[:-1], self.obs_dim, self.obs_dim)
+
+    def observe(self, x: Tensor) -> Tensor:
+        return x
+
+    def cost(self, mu_b: Tensor, sigma_b: Tensor, u: Tensor) -> Tensor:
+        """Belief cost (μ−g)ᵀdiag(μw)(μ−g) + tr(diag(Σw)·Σ) + uᵀdiag(Rw)u
+        (lightdark.py:76-79, car.py:95-99), over any leading batch axes."""
+        g = _const(self.goal, mu_b.dtype, mu_b.device)
+        mw = _const(self.mu_w, mu_b.dtype, mu_b.device)
+        sw = _const(self.sigma_w, mu_b.dtype, mu_b.device)
+        aw = _const(self.act_w, u.dtype, u.device)
+        d = mu_b - g
+        return ((d * mw * d).sum(-1) + (sw * torch.diagonal(sigma_b, dim1=-2, dim2=-1)).sum(-1)
+                + (u * aw * u).sum(-1))
+
+    def step(self, generator: torch.Generator | None, x: Tensor, u: Tensor,
+             normals: tuple[Tensor, Tensor] | None = None) -> tuple[Tensor, Tensor]:
+        """Noisy step returning (next state, noisy observation): each a draw
+        ``mean + chol(cov) ε`` (lightdark.py:85-100), with the standard
+        normals ``ε`` from ``generator`` or handed in as ``normals =
+        (ε_dyn (..., dx), ε_obs (..., do))``."""
+        if normals is None:
+            normals = (standard_normal(x.shape, generator, x.dtype, x.device),
+                       standard_normal((*x.shape[:-1], self.obs_dim), generator, x.dtype,
+                                       x.device))
+        xn = chol_draw(self.dynamics(x, u), self.dyn_noise(x, u), normals[0])
+        return xn, chol_draw(self.observe(xn), self.obs_noise(xn), normals[1])
+
+
+def standard_normal(shape, generator: torch.Generator | None, dtype: torch.dtype,
+                    device) -> Tensor:
+    """Standard normals of ``shape``, drawn on the generator's device (the
+    default generator's when None) and moved to ``device``."""
+    where = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, dtype=dtype, device=where).to(device)
+
+
+def chol_draw(mean: Tensor, cov: Tensor, eps: Tensor) -> Tensor:
+    """``mean + chol(cov) ε``: the multivariate-normal draw with its
+    standard normals handed in."""
+    return mean + _matvec(cholesky(cov), eps)
 
 
 # ---------------------------------------------------------------------------------

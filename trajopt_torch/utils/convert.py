@@ -1,10 +1,10 @@
 """Carry environments and solver states across from the JAX package.
 
 Plain Python and numpy values only: nothing here imports ``trajopt_tpu``.
-A caller turns a JAX env into ``dataclasses.asdict(env)`` and a JAX
-``ILQRState`` into a dict of numpy arrays; a JAX ``GPSState`` into a dict
-whose container fields (``ctl``, ``xdist``, ``dyn``, ``cost``) are dicts of
-numpy arrays keyed by their own fields.
+A caller turns a JAX env into ``dataclasses.asdict(env)``, a JAX
+``ILQRState`` or ``BSPState`` into a dict of numpy arrays, and a JAX
+``GPSState`` into a dict whose container fields (``ctl``, ``xdist``,
+``dyn``, ``cost``) are dicts of numpy arrays keyed by their own fields.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from ..core.types import (
     QuadraticCost,
 )
 from ..envs.base import make
+from ..parallel.bsp import BSPState
 from ..parallel.gps import GPSState
 from ..parallel.mpc import ILQRState
 
@@ -37,8 +38,8 @@ def _plain(v):
 
 
 def env_from_fields(env_id: str, fields: dict):
-    """The port's ``env_id`` (any registered id: Cartpole, Pendulum or LQR)
-    with the given dataclass fields of the JAX env."""
+    """The port's ``env_id`` (any registered id: Cartpole, Pendulum, LQR,
+    LightDark or Car) with the given dataclass fields of the JAX env."""
     env = make(env_id)
     known = {f.name for f in dataclasses.fields(env)}
     unknown = set(fields) - known
@@ -47,21 +48,42 @@ def env_from_fields(env_id: str, fields: dict):
     return dataclasses.replace(env, **{k: _plain(v) for k, v in fields.items()})
 
 
+def _flat_state(cls, d: dict, device):
+    def conv(name):
+        t = torch.as_tensor(np.array(d[name]))
+        return (t.to(torch.bool) if name == "done" else t).to(device)
+
+    return cls(*(conv(name) for name in cls._fields))
+
+
+def _flat_to_numpy(state) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
 def ilqr_state_from_numpy(d: dict, *, device="cuda") -> ILQRState:
     """A state given as numpy arrays (keys: the ``ILQRState`` fields) → the
     port's state on ``device``, dtypes and shapes kept (``done`` as bool):
     unbatched from ``make_ilqr_solver``, batch-leading from
     ``make_ilqr_solver_batched``."""
-    def conv(name):
-        t = torch.as_tensor(np.array(d[name]))
-        return (t.to(torch.bool) if name == "done" else t).to(device)
-
-    return ILQRState(*(conv(name) for name in ILQRState._fields))
+    return _flat_state(ILQRState, d, device)
 
 
 def ilqr_state_to_numpy(state: ILQRState) -> dict:
     """The port's state → a dict of numpy arrays keyed by field."""
-    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+    return _flat_to_numpy(state)
+
+
+def bsp_state_from_numpy(d: dict, *, device="cuda") -> BSPState:
+    """A BSP-iLQR state given as numpy arrays (keys: the ``BSPState``
+    fields) → the port's state on ``device``, dtypes and shapes kept
+    (``done`` as bool): unbatched from ``make_bsp_solver``, batch-leading
+    from ``make_bsp_solver_batched``."""
+    return _flat_state(BSPState, d, device)
+
+
+def bsp_state_to_numpy(state: BSPState) -> dict:
+    """The port's BSP-iLQR state → a dict of numpy arrays keyed by field."""
+    return _flat_to_numpy(state)
 
 
 def gps_state_from_numpy(d: dict, *, device="cuda") -> GPSState:
