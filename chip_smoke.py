@@ -74,7 +74,20 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    K10, agree with K10's plain version on the same normals over all 50 steps
    and end with the belief mean within 0.1 of the goal; K10's control
    steps/s, device time, bound and plain time;
-16. the kernels line (K1-K10) and, last, the device line.
+16. the eLQR kernels K11-K14 (the sweeps and the whole solve) against their
+   plain versions: float64 at N=50, T=16 on the second iteration's operands
+   of Cartpole v0 and v1 and on random operands, K14 over 3 iterations
+   (1e-9); float32 K11-K13 on the streamed engine's first-iteration operands
+   (N=1024, T=100); the main path, make_elqr_solver_batched on
+   Cartpole-TO-v0 (bench.py:390-420: T=100, 10 iterations, engine="auto") at
+   N=64 and N=1 (one K14 launch each) and N=1024 (K11 and K12 10 launches
+   each, K13 12), finite; the timed float32 K14 solve held to its plain
+   version over all 10 iterations; both kernel engines held to the scan
+   engine in float64 on 8 instances over 3 iterations (trace rtol/atol
+   1e-8) and to each other over 10; ms per solve and instance-iterations/s
+   at N=64, 1024 and 1, the scan engine's ms for one iteration at N=64, and
+   each kernel's device time, bound and plain time;
+17. the kernels line (K1-K14) and, last, the device line.
 
 A line "[t s] phase" marks the start of the later phases.
 
@@ -137,6 +150,22 @@ T_DUAL, N_DUAL = 1000, 4096
 T_BSP, N_BSP, BSP_ITER, BSP_STEPS = 25, 4096, 10, 50
 N_BSP_SCAN, BSP_CHECK_STEPS = 64, 5
 
+# The eLQR paths: bench.py:390-420 (Cartpole-TO-v0, T=100, 10 iterations, batch
+# 64 through the single-launch solve K14 and batch 1024 through the streamed
+# sweeps K11-K13) and bench.py:1055's batch 1; float64 checks at N=50, T=16;
+# the kernel engines held to the scan engine on 8 instances over 3 iterations
+# and the scan engine timed over 1 (its torch.func steps take about 11 s an
+# iteration at T=100, so 10 would take minutes).
+T_ELQR, ELQR_ITER, N_ELQR_FUSED, N_ELQR_STREAM = 100, 10, 64, 1024
+N_ELQR_SMALL, T_ELQR_SMALL, ELQR_SMALL_ITER = 50, 16, 3
+N_ELQR_SCAN, ELQR_SCAN_ITER, ELQR_SCAN_TIMED_ITER = 8, 3, 1
+# float32 tolerances, of the largest entry: one sweep at T=100 (K11, K12, and
+# K13's returns; read up to 3.0e-5), K13's states and actions (a closed loop
+# of 100 steps under the gains of order 1e3 that K12 returns carries the
+# rounding from step to step: read 4.7e-3), and the 10-iteration solve (K14;
+# read 3.3e-5 on NVIDIA H100 80GB HBM3, 700.00 W)
+ELQR_F32_TOL, ELQR_F32_TRAJ_TOL, ELQR_F32_SOLVE_TOL = 1e-3, 1e-2, 1e-3
+
 
 def _mm_ops(n, k, m):
     """Operations of an (n, k) by (k, m) product."""
@@ -182,13 +211,15 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def errors(name, got, ref, tol):
-    """Max abs error and error relative to the reference's largest entry."""
+def errors(name, got, ref, tol, floor=0.0):
+    """Max abs error and error relative to the reference's largest entry or,
+    where that is larger, to ``floor``: the natural scale of a stream that
+    is rounding residue of an exact zero."""
     got, ref = got.double(), ref.double()
     if not bool(torch.isfinite(got).all()):
         fail(f"{name}: non-finite output")
     err = (got - ref).abs().max().item()
-    scale = max(ref.abs().max().item(), 1e-30)
+    scale = max(ref.abs().max().item(), floor, 1e-30)
     log(f"  {name}: max_abs_err={err:.3e} max_rel_err={err / scale:.3e} (tol {tol:.0e})")
     if not err / scale <= tol:
         fail(f"{name}: relative error {err / scale:.3e} above {tol:.0e}")
@@ -1362,6 +1393,317 @@ def bsp_episode_phase(device, card, wrappers):
     return row
 
 
+# --------------------------------------------------------------------------------------
+# eLQR: kernels K11-K14, the batched solver
+# --------------------------------------------------------------------------------------
+
+# Operations of the eLQR kernels, counted from csrc/elqr.cu at Cartpole's
+# dims (dx=4, du=1), one per add, multiply, divide, compare, select or
+# transcendental call, as OPS_PER_STEP: a sweep step is the action (9), one
+# plain RK4 step (152), a dual RK4 step over 5 tangents (about 1250) and its
+# affine term (40), the closed-form quadratization (about 350) and the value
+# algebra with its two Gauss-Jordan inverses (about 880): about 2680; the
+# terminal step is a quadratization and a re-choice (about 750); a rollout
+# step the action, the stage cost and one RK4 step (182), and its end one
+# stage cost (20).
+ELQR_OPS = dict(step=2680, terminal=750, rollout_step=182, rollout_end=20)
+
+
+def k11_operations(T, N):
+    return N * T * ELQR_OPS["step"]
+
+
+def k12_operations(T, N):
+    return N * (T * ELQR_OPS["step"] + ELQR_OPS["terminal"])
+
+
+def k13_operations(T, N):
+    return N * (T * ELQR_OPS["rollout_step"] + ELQR_OPS["rollout_end"])
+
+
+def k14_operations(T, N, nb_iter):
+    return (nb_iter * (k11_operations(T, N) + k12_operations(T, N))
+            + (nb_iter + 2) * k13_operations(T, N))
+
+
+def elqr_inputs(N, T, seed, dtype, device, theta0=0.0, step=0.001):
+    """bench.py:406-407's start (zero state, θ = θ₀ + step·i) and seeded
+    N(0, 1) initial kff: batch-leading x0s (N, 4), kff0 (N, T, 1)."""
+    x0s = torch.zeros(N, 4, dtype=dtype, device=device)
+    x0s[:, 1] = theta0 + step * torch.arange(N, dtype=dtype, device=device)
+    kff0 = np.random.default_rng(seed).standard_normal((N, T, 1))
+    return x0s, torch.as_tensor(kff0, dtype=dtype, device=device)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def check_elqr_sweeps(label, env, K, kff, goV, gov, x, x0, tol, traj_tol=None):
+    """K11 on (K, kff, goV, gov) from the states x, K12 on K11's outputs, K13
+    (stored) on K12's controller from x0, each against its plain version on
+    the same operands; K13's states and actions at ``traj_tol`` when given.
+    Floors: kff at umax; v, v0 and x at |V|·s, |V|·s² and s, s the largest
+    |x0| (at least 1)."""
+    from trajopt_torch.core import cuda_elqr as ce
+
+    s = max(x0.abs().max().item(), 1.0)
+    umax = float(env.umax[0])
+    out, plain_ms, errs = {}, {}, {}
+    f = ce.cuda_elqr_forward(env, K, kff, goV, gov, x)
+    pf, plain_ms["K11"] = timed(lambda: ce.elqr_forward_plain(env, K, kff, goV, gov, x))
+    V = pf[2].abs().max().item()
+    for name, g, r, fl in zip(("iK", "ikff", "comeV", "comev", "comev0", "x_out"), f, pf,
+                              (0.0, umax, 0.0, V * s, V * s * s, s)):
+        errs.setdefault("K11", []).append(errors(f"K11 {label} {name}", g, r, tol, fl))
+    b = ce.cuda_elqr_backward(env, f[0], f[1], f[2], f[3], f[5])
+    pb, plain_ms["K12"] = timed(lambda: ce.elqr_backward_plain(env, f[0], f[1], f[2], f[3], f[5]))
+    V = pb[2].abs().max().item()
+    for name, g, r, fl in zip(("K", "kff", "goV", "gov", "gov0", "x_out"), b, pb,
+                              (0.0, umax, 0.0, V * s, V * s * s, s)):
+        errs.setdefault("K12", []).append(errors(f"K12 {label} {name}", g, r, tol, fl))
+    r = ce.cuda_elqr_rollout(env, b[0], b[1], x0, store=True)
+    pr, plain_ms["K13"] = timed(lambda: ce.elqr_rollout_plain(env, b[0], b[1], x0, store=True))
+    log(f"  {label}: {int((pr[2].abs() >= umax).sum())} of {pr[2].numel()} rollout actions "
+        "at or past ±umax")
+    traj_tol = traj_tol or tol
+    for name, g, p_, t in zip(("returns", "xs", "us"), r, pr, (tol, traj_tol, traj_tol)):
+        errs.setdefault("K13", []).append(errors(f"K13 {label} {name}", g, p_, t))
+    if not torch.equal(ce.cuda_elqr_rollout(env, b[0], b[1], x0), r[0]):
+        fail(f"K13 {label}: the returns differ with and without storing")
+    out["K11"] = (K, kff, goV, gov, x), f
+    out["K12"] = (f[0], f[1], f[2], f[3], f[5]), b
+    out["K13"] = (b[0], b[1], x0), (r[0],)
+    return out, {k: max(v) for k, v in errs.items()}, plain_ms
+
+
+def check_k14(label, env, kff0, x0, nb_iter, tol):
+    """K14 against its plain version on the same kff0 (T, 1, N) and x0 (4,
+    N); the returns' error per iteration shows where the two part."""
+    from trajopt_torch.core import cuda_elqr as ce
+
+    out = ce.cuda_elqr_solve(env, kff0, x0, nb_iter)
+    ref, plain_ms = timed(lambda: ce.elqr_solve_plain(env, kff0, x0, nb_iter))
+    per_iter = ((out[4] - ref[4]).abs().max(1).values
+                / ref[4].abs().max(1).values.clamp(min=1e-30)).tolist()
+    log(f"  K14 {label} returns' relative error per iteration: "
+        f"{[float(f'{e:.2e}') for e in per_iter]}")
+    umax = float(env.umax[0])
+    errs = [errors(f"K14 {label} {name}", g, r, tol, fl)
+            for name, g, r, fl in zip(("K", "kff", "xs", "us", "returns"), out, ref,
+                                      (0.0, umax, 0.0, 0.0, 0.0))]
+    return out, max(errs), plain_ms
+
+
+def check_elqr_f64(device):
+    """float64, N=50, T=16: K11-K13 on the second iteration's operands
+    (goV ≠ 0, saturated actions) for Cartpole v0 (from the hanging start)
+    and v1 (from θ = 0.3, as tests/test_torch_elqr_kernels.py), and on
+    random O(1) operands for v0 (goV positive definite, |kff| ~ 8 so that
+    actions saturate); K14 over 3 iterations.  1e-9 of the largest entry:
+    the kernels and the plain versions do the same operations in the same
+    order (-fmad=false), only the card's and the host's sin/cos may differ."""
+    import trajopt_torch
+    from trajopt_torch.core import cuda_elqr as ce
+    from trajopt_torch.core.cuda_lqr import to_soa
+
+    N, T = N_ELQR_SMALL, T_ELQR_SMALL
+    k64 = dict(dtype=torch.float64, device=device)
+    log(f"K11-K14 checks: float64, N={N}, T={T}, tolerance 1e-9")
+    for name, theta0 in (("Cartpole-TO-v0", math.pi), ("Cartpole-TO-v1", 0.3)):
+        env = trajopt_torch.make(name)
+        x0s, kff0 = elqr_inputs(N, T, 7, torch.float64, device, theta0, 0.02)
+        x0, kff = x0s.T.contiguous(), to_soa(kff0, N)
+        K = torch.zeros(T, 4, N, **k64)
+        goV, gov = torch.zeros(T + 1, 16, N, **k64), torch.zeros(T + 1, 4, N, **k64)
+        f = ce.cuda_elqr_forward(env, K, kff, goV, gov, x0)
+        b = ce.cuda_elqr_backward(env, f[0], f[1], f[2], f[3], f[5])
+        log(f"  {name}: the second iteration's operands, from the kernels' first")
+        check_elqr_sweeps(f"f64 {name} it2", env, b[0], b[1], b[2], b[3], b[5], x0, 1e-9)
+        check_k14(f"f64 {name} nb_iter={ELQR_SMALL_ITER}", env, kff, x0, ELQR_SMALL_ITER, 1e-9)
+    env = trajopt_torch.make("Cartpole-TO-v0")
+    rng = np.random.default_rng(1)
+    x0 = torch.as_tensor(np.stack([rng.uniform(-2, 2, N), np.pi + rng.uniform(-1, 1, N),
+                                   rng.normal(size=N), rng.normal(size=N)]), **k64)
+    K = torch.as_tensor(0.5 * rng.standard_normal((T, 4, N)), **k64)
+    kff = torch.as_tensor(8.0 * rng.standard_normal((T, 1, N)), **k64)
+    G = rng.standard_normal((T + 1, N, 4, 4))
+    G = G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(4)
+    goV = torch.as_tensor(np.moveaxis(G.reshape(T + 1, N, 16), 1, 2).copy(), **k64)
+    gov = torch.as_tensor(rng.standard_normal((T + 1, 4, N)), **k64)
+    check_elqr_sweeps("f64 Cartpole-TO-v0 random operands", env, K, kff, goV, gov, x0, x0, 1e-9)
+
+
+def elqr_kernel_rows(card, launches, errs, plain_ms, operands, k14):
+    """Device time per launch (queued back to back behind a sleep), bytes,
+    operations and bound of K11-K13 at the streamed engine's first-iteration
+    operands (N=1024, T=100) and of K14 at the timed solve (N=64, T=100, 10
+    iterations)."""
+    import trajopt_torch
+    from trajopt_torch.core import cuda_elqr as ce
+
+    env = trajopt_torch.make("Cartpole-TO-v0")
+    T, N = T_ELQR, N_ELQR_STREAM
+    calls = {
+        "K11": (lambda: ce.cuda_elqr_forward(env, *operands["K11"][0]), k11_operations(T, N)),
+        "K12": (lambda: ce.cuda_elqr_backward(env, *operands["K12"][0]), k12_operations(T, N)),
+        "K13": (lambda: ce.cuda_elqr_rollout(env, *operands["K13"][0]), k13_operations(T, N)),
+        "K14": (lambda: ce.cuda_elqr_solve(env, *k14[0], ELQR_ITER),
+                k14_operations(T, N_ELQR_FUSED, ELQR_ITER)),
+    }
+    moved = {k: nbytes(*ins, *outs) for k, (ins, outs) in operands.items()}
+    moved["K14"] = nbytes(*k14[0], *k14[1])
+    meta = {"K11": ("K11 elqr_forward", 279, f"T={T} N={N}"),
+            "K12": ("K12 elqr_backward", 342, f"T={T} N={N}"),
+            "K13": ("K13 elqr_rollout", 413, f"T={T} N={N}"),
+            "K14": ("K14 elqr_solve", 607, f"T={T} N={N_ELQR_FUSED} nb_iter={ELQR_ITER}, "
+                    f"one block of {N_ELQR_FUSED} threads")}
+    rows = []
+    for k, (call, ops) in calls.items():
+        reps = 5 if k == "K14" else 20
+        device_ms, enqueue_ms, _ = device_ms_back_to_back(call, reps)
+        bytes_ms, ops_ms = 1e3 * moved[k] / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+        name, line, shape = meta[k]
+        row = {
+            "name": name, "route": "cuda", "source": "trajopt_torch/csrc/elqr.cu",
+            "replaces": f"trajopt_tpu/core/pallas_elqr.py:{line}", "launches": launches[k],
+            "max_abs_err": errs[k], "ms": device_ms, "call_ms": time_cuda(call, reps),
+            "plain_ms": plain_ms[k], "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # no single PyTorch call computes an eLQR sweep or solve
+            "library_ms": None,
+        }
+        rows.append(row)
+        log(json.dumps({"metric": "kernel", "shape": f"Cartpole-TO-v0 {shape} float32", **row,
+                        "enqueue_ms_per_call": enqueue_ms / reps, "bytes": moved[k],
+                        "operations": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                        "gpu": card}))
+    return rows
+
+
+def elqr_phases(device, card, wrappers):
+    """The eLQR phases: f64 checks, f32 checks of K11-K13 at the streamed
+    engine's first-iteration operands (N=1024, T=100), the main path
+    (make_elqr_solver_batched, engine="auto", at N=64, 1 and 1024) with its
+    launch counts, the timed f32 K14 solve held to its plain version over all
+    10 iterations, both kernel engines held to the scan engine in float64,
+    the timings; returns the K11-K14 rows."""
+    import trajopt_torch
+    from trajopt_torch.core import cuda_elqr as ce
+    from trajopt_torch.core.cuda_lqr import to_soa
+    from trajopt_torch.parallel.elqr import make_elqr_solver_batched
+
+    wrappers.update(K11=ce.cuda_elqr_forward, K12=ce.cuda_elqr_backward,
+                    K13=ce.cuda_elqr_rollout, K14=ce.cuda_elqr_solve)
+    env = trajopt_torch.make("Cartpole-TO-v0")
+    T, it = T_ELQR, ELQR_ITER
+    f32 = dict(dtype=torch.float32, device=device)
+    check_elqr_f64(device)
+
+    # f32 at the streamed engine's first-iteration operands (K = 0, goV = 0)
+    N = N_ELQR_STREAM
+    x0s_s, kff0_s = elqr_inputs(N, T, 11, torch.float32, device)
+    x0 = x0s_s.T.contiguous()
+    tol32 = ELQR_F32_TOL
+    log(f"K11-K13 checks: float32, first iteration at N={N}, T={T}, tolerance {tol32:.0e} "
+        f"(K13's states and actions {ELQR_F32_TRAJ_TOL:.0e})")
+    operands, errs, plain_ms = check_elqr_sweeps(
+        "f32 first iteration", env, torch.zeros(T, 4, N, **f32), to_soa(kff0_s, N),
+        torch.zeros(T + 1, 16, N, **f32), torch.zeros(T + 1, 4, N, **f32), x0, x0, tol32,
+        ELQR_F32_TRAJ_TOL)
+
+    # the main path: engine="auto" at N=64 (K14), N=1 (K14) and N=1024 (K11-K13)
+    solve = make_elqr_solver_batched(env, T, it, engine="auto", **f32)
+    x0s_f, kff0_f = elqr_inputs(N_ELQR_FUSED, T, 12, torch.float32, device)
+    x0s_1, kff0_1 = elqr_inputs(1, T, 13, torch.float32, device)
+    runs = {}
+    expect = {N_ELQR_FUSED: {"K14": 1}, 1: {"K14": 1},
+              N_ELQR_STREAM: {"K11": it, "K12": it, "K13": it + 2}}
+    for n, (x0s, kff0) in ((N_ELQR_FUSED, (x0s_f, kff0_f)), (1, (x0s_1, kff0_1)),
+                           (N_ELQR_STREAM, (x0s_s, kff0_s))):
+        for w in wrappers.values():
+            w.launches = 0
+        out = solve(x0s, kff_init=kff0)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"eLQR main path N={n} launches: {json.dumps(launches)}")
+        want = {k: expect[n].get(k, 0) for k in wrappers}
+        if launches != want:
+            fail(f"eLQR at N={n} launched {launches}, not {want}")
+        if not all(bool(torch.isfinite(t).all()) for t in (out[0].K, out[0].kff, *out[1:])):
+            fail(f"non-finite eLQR results at N={n}")
+        runs[n] = (x0s, kff0, out, launches)
+    main_launches = {**runs[N_ELQR_STREAM][3], "K14": runs[N_ELQR_FUSED][3]["K14"]}
+
+    # the timed f32 K14 solve against its plain version over all 10 iterations
+    log(f"K14 check: float32, the main path's solve, N={N_ELQR_FUSED}, T={T}, nb_iter={it}, "
+        f"tolerance {ELQR_F32_SOLVE_TOL:.0e}")
+    x0s, kff0, out, _ = runs[N_ELQR_FUSED]
+    k14_in = (to_soa(kff0, N_ELQR_FUSED), x0s.T.contiguous())
+    ref, plain_ms["K14"] = timed(lambda: ce.elqr_solve_plain(env, *k14_in, it))
+    per_iter = ((out[3].T - ref[4]).abs().max(1).values
+                / ref[4].abs().max(1).values.clamp(min=1e-30)).tolist()
+    log(f"  K14 f32 returns' relative error per iteration: "
+        f"{[float(f'{e:.2e}') for e in per_iter]}")
+    umax = float(env.umax[0])
+    errs["K14"] = max(
+        errors(f"K14 f32 main path {name}", g, r, ELQR_F32_SOLVE_TOL, fl)
+        for name, g, r, fl in zip(
+            ("K", "kff", "xs", "us", "returns"),
+            (to_soa(out[0].K, N_ELQR_FUSED), to_soa(out[0].kff, N_ELQR_FUSED),
+             to_soa(out[1], N_ELQR_FUSED), to_soa(out[2], N_ELQR_FUSED), out[3].T.contiguous()),
+            ref, (0.0, umax, 0.0, 0.0, 0.0)))
+
+    # both kernel engines against the scan engine in float64
+    n8 = N_ELQR_SCAN
+    x8, kff8 = elqr_inputs(n8, T, 14, torch.float64, device)
+    k64 = dict(dtype=torch.float64, device=device)
+    res = {e: make_elqr_solver_batched(env, T, ELQR_SCAN_ITER, engine=e, **k64)(x8, kff_init=kff8)
+           for e in ("cuda", "cuda-fused", "scan")}
+    for e in ("cuda", "cuda-fused"):
+        diff = (res[e][3] - res["scan"][3]).abs()
+        bound = 1e-8 + 1e-8 * res["scan"][3].abs()
+        log(f"  eLQR f64 {e} vs scan, N={n8}, T={T}, nb_iter={ELQR_SCAN_ITER}: trace "
+            f"max_abs_err={diff.max().item():.3e}, max err/(1e-8 + 1e-8|scan|)="
+            f"{(diff / bound).max().item():.3e}")
+        if not bool((diff <= bound).all()):
+            fail(f"eLQR f64 engine {e} and scan traces differ beyond rtol/atol 1e-8")
+    full = {e: make_elqr_solver_batched(env, T, it, engine=e, **k64)(x8, kff_init=kff8)
+            for e in ("cuda", "cuda-fused")}
+    same = errors(f"eLQR f64 cuda vs cuda-fused, nb_iter={it}, trace", full["cuda"][3],
+                       full["cuda-fused"][3], 1e-12)
+    log(json.dumps({"elqr_f64_engines_vs_each_other_trace_abs_err": same}))
+
+    # timings: ms per solve of the main path at N=64, 1024 and 1, and the scan engine
+    for n in (N_ELQR_FUSED, N_ELQR_STREAM, 1):
+        x0s, kff0 = runs[n][:2]
+        ms = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            solve(x0s, kff_init=kff0)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        med = sorted(ms)[1]
+        log(json.dumps({"metric": "elqr", "config": f"Cartpole-TO-v0 T={T} nb_iter={it} N={n} "
+                        f"engine=auto->{'cuda' if n > 128 else 'cuda-fused'} float32",
+                        "ms_per_solve": med, "ms_runs": ms,
+                        "instance_iters_per_s": n * it / (med / 1e3), "gpu": card}))
+    x0s, kff0 = runs[N_ELQR_FUSED][:2]
+    scan = make_elqr_solver_batched(env, T, ELQR_SCAN_TIMED_ITER, engine="scan", **f32)
+    _, scan_ms = timed(lambda: scan(x0s, kff_init=kff0))
+    log(json.dumps({"metric": "elqr_scan", "config": f"Cartpole-TO-v0 T={T} "
+                    f"nb_iter={ELQR_SCAN_TIMED_ITER} N={N_ELQR_FUSED} engine=scan float32",
+                    "ms_per_solve": scan_ms, "ms_per_iteration_with_rollouts":
+                    scan_ms / ELQR_SCAN_TIMED_ITER, "gpu": card}))
+    return elqr_kernel_rows(card, main_launches, errs, plain_ms, operands,
+                            (k14_in, ce.cuda_elqr_solve(env, *k14_in, it)))
+
+
 def main():
     global torch
     import torch
@@ -1725,9 +2067,11 @@ def main():
     rows.append(k9_phase(dev, card, wrappers, check_k9(dev)))
     log(f"[{time.perf_counter() - t_start:.0f} s] belief-MPC episode")
     rows.append(bsp_episode_phase(dev, card, wrappers))
+    log(f"[{time.perf_counter() - t_start:.0f} s] eLQR phases")
+    rows += elqr_phases(dev, card, wrappers)
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
 
-    # 16. the kernels line, then the device line last
+    # 17. the kernels line, then the device line last
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

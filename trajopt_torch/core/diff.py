@@ -10,7 +10,7 @@ from typing import Callable
 
 import torch
 from torch import Tensor
-from torch.func import grad, hessian, jacfwd, jacrev, vmap
+from torch.func import grad, hessian, jacfwd, vmap
 
 from ..envs.base import _matvec
 from .types import LinearDynamics, QuadraticCost
@@ -54,12 +54,13 @@ def _quadratize_delta(
     lead = xs.shape[:-1]
 
     def expand(x, u, ul, a):
-        Cxx = hessian(cost, argnums=0)(x, u, ul, a)
-        Cuu = hessian(cost, argnums=1)(x, u, ul, a)
-        Cxu = jacfwd(jacrev(cost, argnums=0), argnums=1)(x, u, ul, a)
-        cx = grad(cost, argnums=0)(x, u, ul, a)
-        cu = grad(cost, argnums=1)(x, u, ul, a)
-        return Cxx, Cuu, Cxu, cx, cu
+        # one Hessian and one gradient over (x, u) give every block
+        def cost_xu(xu):
+            return cost(xu[:dx], xu[dx:], ul, a)
+
+        xu = torch.cat([x, u])
+        H, g = hessian(cost_xu)(xu), grad(cost_xu)(xu)
+        return H[:dx, :dx], H[dx:, dx:], H[:dx, dx:], g[:dx], g[dx:]
 
     w = weights.expand(lead)
     Cxx, Cuu, Cxu, cx, cu = vmap(expand)(
@@ -119,3 +120,32 @@ def evaluate_quadratic_cost(cost: QuadraticCost, xs: Tensor, us: Tensor) -> Tens
         + cost.c0
     )
     return quad.sum(-1)
+
+
+def quadratize_cost_elqr(cost: Callable, x: Tensor, u: Tensor):
+    """eLQR-convention quadratization at single points (x, u) with u_last = 0
+    and a = 1: cost(x, u) ≈ xᵀCxx x + uᵀCuu u + xᵀCxu u + cxᵀx + cuᵀu + c0
+    with Cxx = ½H_xx and Cuu = ½H_uu but Cxu = H_xu unscaled, so the cross
+    terms count once.  ``x (..., dx)``, ``u (..., du)`` with equal leading
+    shapes; returns ``(Cxx, Cuu, Cxu, cx, cu, c0)``."""
+    dx, du = x.shape[-1], u.shape[-1]
+    lead = x.shape[:-1]
+
+    def cost_xu(xu):
+        return cost(xu[:dx], xu[dx:], torch.zeros_like(xu[dx:]),
+                    torch.ones((), dtype=xu.dtype, device=xu.device))
+
+    def expand(xu):
+        # one Hessian and one gradient over (x, u) give every block
+        return hessian(cost_xu)(xu), grad(cost_xu)(xu), cost_xu(xu)
+
+    H, g, c = vmap(expand)(torch.cat([x, u], -1).reshape(-1, dx + du))
+    H, g, c = H.reshape(lead + H.shape[1:]), g.reshape(lead + g.shape[1:]), c.reshape(lead)
+    H_xx, H_uu, H_xu = H[..., :dx, :dx], H[..., dx:, dx:], H[..., :dx, dx:]
+    g_x, g_u = g[..., :dx], g[..., dx:]
+    Cxx, Cuu, Cxu = 0.5 * H_xx, 0.5 * H_uu, H_xu
+    cx = g_x - _matvec(H_xx, x) - _matvec(H_xu, u)
+    cu = g_u - _matvec(H_uu, u) - _matvec(H_xu.mT, x)
+    c0 = (c - _quad(x, Cxx, x) - _quad(u, Cuu, u) - _quad(x, Cxu, u)
+          - (cx * x).sum(-1) - (cu * u).sum(-1))
+    return Cxx, Cuu, Cxu, cx, cu, c0

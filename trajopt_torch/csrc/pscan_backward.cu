@@ -6,7 +6,7 @@
 // kernel's _pscan_compute: the Särkkä/García-Fernández value elements of all
 // T+1 positions (terminal element at T), ⌈log₂(T+1)⌉ doubling levels
 // S_t ← S_t ⊗ S_{t+d} of the suffix scan (core/pscan_lqr.py's combine, with a
-// partial-pivoting Gauss–Jordan inverse), then the gains from the value one
+// partial-pivoting Gauss–Jordan inverse, gj_inv.cuh), then the gains from the value one
 // step later and the dV pair.  The (8, C) time tiles, lane rolls and sublane
 // selects of the TPU kernel are Mosaic plumbing and are not carried over.
 //
@@ -33,11 +33,9 @@
 #include <cuda_runtime.h>
 
 #include "bwd_step.cuh"
+#include "gj_inv.cuh"
 
 constexpr int K5_MAX_THREADS = 256;
-
-__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_(double x) { return fabs(x); }
 
 template <typename S, int DX>
 struct Elem {
@@ -116,49 +114,6 @@ __device__ __forceinline__ void identity_elem(Elem<S, DX>& e) {
     }
     e.b[i] = S(0);
     e.eta[i] = S(0);
-  }
-}
-
-// Gauss–Jordan inverse of M (destroyed) into G, with per-step partial
-// pivoting by compare-swap against every later row (core/pscan_lqr.py
-// _gj_inv): a pivot-free elimination is wrong on valid PSD inputs.
-template <typename S, int N>
-__device__ __forceinline__ void gj_inv(S (&M)[N][N], S (&G)[N][N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) G[i][j] = i == j ? S(1) : S(0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const bool swap = abs_(M[i][k]) > abs_(M[k][k]);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const S mk = M[k][j], mi = M[i][j];
-        M[k][j] = swap ? mi : mk;
-        M[i][j] = swap ? mk : mi;
-        const S gk = G[k][j], gi = G[i][j];
-        G[k][j] = swap ? gi : gk;
-        G[i][j] = swap ? gk : gi;
-      }
-    }
-    const S piv = S(1) / M[k][k];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      M[k][j] = M[k][j] * piv;
-      G[k][j] = G[k][j] * piv;
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i == k) continue;
-      const S f = M[i][k];
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        M[i][j] = M[i][j] - f * M[k][j];
-        G[i][j] = G[i][j] - f * G[k][j];
-      }
-    }
   }
 }
 

@@ -55,6 +55,15 @@ def rk4(f: Callable, x: Tensor, u: Tensor, dt: float) -> Tensor:
     return x + dt / 6.0 * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
+def rk4_backward(f: Callable, x: Tensor, u: Tensor, dt: float) -> Tensor:
+    """Backward-sign RK4, the integrator of ``inverse_dynamics``."""
+    k1 = f(x, u)
+    k2 = f(x - 0.5 * dt * k1, u)
+    k3 = f(x - 0.5 * dt * k2, u)
+    k4 = f(x - dt * k3, u)
+    return x - dt / 6.0 * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
 def _parts(x: Tensor) -> tuple[Tensor, ...]:
     """Components of ``x (..., d)`` as ``(..., 1)`` tensors for the tile
     protocol.  Keeping the unit axis matters: under ``torch.func.jacfwd`` a
@@ -146,6 +155,12 @@ class TrajEnv:
     def dynamics(self, x: Tensor, u: Tensor) -> Tensor:
         u = self.clip_act(u)
         return self.clip_state(rk4(self._ode, x, u, self.dt))
+
+    def inverse_dynamics(self, x: Tensor, u: Tensor) -> Tensor:
+        """The state one step earlier: clip the action, one backward-sign RK4
+        step, clip the state (eLQR's forward sweep linearizes it)."""
+        u = self.clip_act(u)
+        return self.clip_state(rk4_backward(self._ode, x, u, self.dt))
 
     def features(self, x: Tensor) -> Tensor:
         return x

@@ -2,7 +2,7 @@
 
 x' = A x + B u + c with a dt-scaled quadratic goal cost.  The adversarial
 interface of LQR-TO-v1/v2 (``dynamics_dist``, ``evolve``) belongs to robust
-GPS and ``inverse_dynamics`` to eLQR; both wait for their slices.
+GPS and waits for its slice.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 from torch import Tensor
 
-from .base import TrajEnv, _matvec, register
+from .base import TrajEnv, _matvec, register, rk4_backward
 
 _INF = float("inf")
 
@@ -55,9 +55,16 @@ class _LinearEnv(TrajEnv):
         return self.dt * c
 
     def inverse_dynamics(self, x: Tensor, u: Tensor) -> Tensor:
-        raise NotImplementedError(
-            "inverse_dynamics serves eLQR, not ported yet (ROADMAP.md queue 1, row 12)"
-        )
+        """Backward RK4 of the continuous-map reading of the linear system
+        (the reference's eLQR inverse on LQR tasks, not the exact inverse of
+        ``dynamics``), clipped at ±xmax."""
+        u = self.clip_act(u)
+        A, B, c = (m.to(dtype=x.dtype, device=x.device) for m in self._ABc())
+
+        def f(x, u):
+            return _matvec(A, x) + _matvec(B, u) + c
+
+        return self.clip_state(rk4_backward(f, x, u, self.dt))
 
     def dynamics_dist(self, *args, **kwargs) -> Tensor:
         raise NotImplementedError(

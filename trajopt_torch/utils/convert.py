@@ -4,7 +4,9 @@ Plain Python and numpy values only: nothing here imports ``trajopt_tpu``.
 A caller turns a JAX env into ``dataclasses.asdict(env)``, a JAX
 ``ILQRState`` or ``BSPState`` into a dict of numpy arrays, and a JAX
 ``GPSState`` into a dict whose container fields (``ctl``, ``xdist``,
-``dyn``, ``cost``) are dicts of numpy arrays keyed by their own fields.
+``dyn``, ``cost``) are dicts of numpy arrays keyed by their own fields, and
+a ``LinearPolicy`` or ``QuadraticValue`` (an eLQR controller or value
+function) into a dict of numpy arrays keyed by field.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from ..core.types import (
     GaussianSequence,
     LinearGaussianDynamics,
     LinearGaussianPolicy,
+    LinearPolicy,
     QuadraticCost,
+    QuadraticValue,
 )
 from ..envs.base import make
 from ..parallel.bsp import BSPState
@@ -111,3 +115,25 @@ def gps_state_to_numpy(state: GPSState) -> dict:
     return {name: ({f: conv(x) for f, x in value._asdict().items()}
                    if name in _GPS_PARTS else conv(value))
             for name, value in state._asdict().items()}
+
+
+def linear_policy_from_numpy(d: dict, *, device="cuda") -> LinearPolicy:
+    """A controller given as numpy arrays (keys ``K``, ``kff``) → the port's
+    ``LinearPolicy`` on ``device``, dtypes and shapes kept."""
+    return _flat_state(LinearPolicy, d, device)
+
+
+def linear_policy_to_numpy(ctl: LinearPolicy) -> dict:
+    """The port's controller → a dict of numpy arrays keyed by field."""
+    return _flat_to_numpy(ctl)
+
+
+def quadratic_value_from_numpy(d: dict, *, device="cuda") -> QuadraticValue:
+    """A value function given as numpy arrays (keys ``V``, ``v``, ``v0``) →
+    the port's ``QuadraticValue`` on ``device``, dtypes and shapes kept."""
+    return _flat_state(QuadraticValue, d, device)
+
+
+def quadratic_value_to_numpy(value: QuadraticValue) -> dict:
+    """The port's value function → a dict of numpy arrays keyed by field."""
+    return _flat_to_numpy(value)
