@@ -87,7 +87,23 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    1e-8) and to each other over 10; ms per solve and instance-iterations/s
    at N=64, 1024 and 1, the scan engine's ms for one iteration at N=64, and
    each kernel's device time, bound and plain time;
-17. the kernels line (K1-K14) and, last, the device line.
+17. the robust-GPS kernels K15-K16 (the adversary's MatrixNormal sweep and
+   the cubature-KL step) against their plain versions: float64 at dims 2/1
+   (p = 8, N=3, T=5) and 4/2 (p = 28, N=8, T=16), each with a non-PD case
+   (flags equal, non-finite entries in the same places; 1e-9); float32 at
+   bench.py:669's shape (T=100, dims 4/2, N=8 and 64), one trip and the
+   damped fixed point from staggered marginals (capped at 4 trips); the
+   two main-path configurations with fp_engine="auto" (LQR-TO-v1 lr, T=60,
+   2 iterations, bench.py:834; Robot-TO-v0 mb, T=50, 2 iterations,
+   examples/rgps/mb_robot.py): K15 and K16 launched once per fixed-point
+   trip, one host sync per trip and one per fixed point, finite
+   non-increasing traces within 1e-5 of trajopt_tpu's float64 traces
+   (frozen in tests/torch_refs/test_torch_rgps.npz), ms per outer iteration, and the share of it
+   that K15/K16's device time takes (both timed at the configuration's own
+   shape); each held to fp_engine="scan" in float64 over one iteration with the
+   searches cut; run_rgps_batch on 64 LQR-TO-v1 problems (1 iteration);
+   K15/K16's device time, bound and plain time;
+18. the kernels line (K1-K16) and, last, the device line.
 
 A line "[t s] phase" marks the start of the later phases.
 
@@ -165,6 +181,34 @@ N_ELQR_SCAN, ELQR_SCAN_ITER, ELQR_SCAN_TIMED_ITER = 8, 3, 1
 # rounding from step to step: read 4.7e-3), and the 10-iteration solve (K14;
 # read 3.3e-5 on NVIDIA H100 80GB HBM3, 700.00 W)
 ELQR_F32_TOL, ELQR_F32_TRAJ_TOL, ELQR_F32_SOLVE_TOL = 1e-3, 1e-2, 1e-3
+
+# The robust-GPS paths: K15/K16 at bench.py:669's fixed-point shape (T=100,
+# dims 4/2, batch 8 and 64, float32); the main path at the two configurations
+# of ROADMAP row 13: bench.py:834's solve (LQR-TO-v1, lr, T=60, 2 iterations)
+# and examples/rgps/mb_robot.py's problem (Robot-TO-v0, sigma_scale=1e-4, mb,
+# T=50; 2 of its 10 iterations), both with fp_engine="auto"; each held to the
+# scan engine in float64 over one iteration with the β-bisection, the fixed
+# point and the α-bisection cut short (the scan engine's p = 28 chains run
+# step by step); run_rgps_batch on 64 perturbed LQR-TO-v1 problems (1 of
+# the solve's 2 iterations).
+T_RGPS_FP, N_RGPS_FP = 100, (8, 64)
+T_RGPS_LQR, T_RGPS_ROBOT, N_RGPS_BATCH = 60, 50, 64
+RGPS_LQR = dict(variant="lr", nb_iter=2, init_action_sigma=10.0, policy_kl_bound=0.25,
+                param_nominal_kl_bound=50.0, nominal_variance=1e-8)
+RGPS_ROBOT = dict(variant="mb", nb_iter=2, init_action_sigma=1.0, policy_kl_bound=1.0,
+                  param_nominal_kl_bound=50.0, nominal_variance=1e-8)
+RGPS_SCAN_CUT = dict(nb_iter=1, beta_iters=3, fp_iters=6, alpha_bisect_iters=8)
+RGPS_BATCH_ITER = 1
+# the whole fixed point of the f32 check, from staggered marginals, capped
+# at 4 trips: the plain versions take 4.5-6.5 s a trip at T=100, dims 4/2
+RGPS_FP_CHECK_ITERS = 4
+# float32 tolerances of the largest entry: one trip at T=100, and the whole
+# fixed point; float64 engines held to each other over the cut solve
+RGPS_F32_TRIP_TOL, RGPS_F32_FP_TOL, RGPS_F64_ENGINE_TOL = 1e-3, 1e-2, 1e-6
+# the main path's float32 trace against trajopt_tpu's float64 one (frozen in
+# tests/torch_refs/test_torch_rgps.npz; read 3.4e-7 on NVIDIA H100 80GB HBM3,
+# 700.00 W, PERF.md): two iterations of bisections in float32
+RGPS_TRACE_TOL = 1e-5
 
 
 def _mm_ops(n, k, m):
@@ -1704,6 +1748,366 @@ def elqr_phases(device, card, wrappers):
                             (k14_in, ce.cuda_elqr_solve(env, *k14_in, it)))
 
 
+# --------------------------------------------------------------------------------------
+# Robust GPS: kernels K15 and K16, the two main-path configurations, the batch
+# --------------------------------------------------------------------------------------
+
+
+def k15_operations(T, N, dx, du):
+    """Operations of one K15 launch, counted from csrc/rgps.cu per row-step:
+    the moments (about 4·p1² + 60), W and w (8p² + 3p), the left-looking
+    Cholesky, the triangular inverse and MᵀM (p³/3 multiply-adds each, so
+    p³ in all, with p square roots and 2p divides), μθ* (2p²), the correction
+    blocks (2·dx²·p1²) and the value recursion (about 600 at dims 4/2)."""
+    p1 = dx + du + 1
+    p = dx * p1
+    return T * N * (4 * p1 * p1 + 60 + 8 * p * p + 3 * p + p ** 3 + 3 * p + 2 * p * p
+                    + 2 * dx * dx * p1 * p1 + 600)
+
+
+def k16_operations(T, N, dx, du):
+    """Operations of one K16 launch, counted from csrc/rgps.cu per row-step:
+    the central form Zm and Qmu (2·p1²·dx² + 2·p1·dx²), the (x, u) point
+    pairs k (Bk 2(nxu−k)dx², Qk 2(nxu−k)(nxu−k+1)dx², a dx-Cholesky and its
+    row sums, about 120), the other points (2dx² each), the ordered mean and
+    covariance (3·n_pts·dx²), and the KL with the interpolation (three dx-
+    Cholesky factors and inverses, about 400)."""
+    nxu, p1 = dx + du, dx + du + 1
+    n_pts = 2 * (nxu + 1 + dx)
+    pairs = sum(2 * (2 * m * dx * dx + 2 * m * (m + 1) * dx * dx + 120)
+                for m in range(1, nxu + 1))
+    return (T + 1) * N * 400 + T * N * (2 * p1 * p1 * dx * dx + 2 * p1 * dx * dx + pairs
+                                        + (n_pts - 2 * nxu) * 2 * dx * dx
+                                        + 3 * n_pts * dx * dx)
+
+
+def rgps_problem(N, T, dx, du, seed, dtype, device, non_pd=False, kick=False):
+    """Seeded fixed-point operands (tests/test_pallas_rgps.py's problem): SPD
+    cost blocks, a nominal near 0.9·I, β = 200; ``non_pd`` shrinks the KL
+    anchor by 1e-12 so W ≈ 2 kron(Mz, V')/β inherits V' = −Cxx_T's negative
+    definiteness; ``kick`` starts the rows' marginals 0, 0.5 or 2 units
+    (cycled) away from the cubature's, so they converge after different trip
+    counts (tests/test_pallas_rgps.py:224).  Returns (packed streams, q μ,
+    q Σ)."""
+    from trajopt_torch.core import cuda_rgps as cr
+    from trajopt_torch.core import types as tt
+    from trajopt_torch.core.cubature import cubature_forward_pass, parameter_augment_cost
+
+    p = dx * (dx + du + 1)
+    rng = np.random.default_rng(seed)
+
+    def spd(d, n, s=1.0):
+        M = rng.standard_normal((N, n, d, d))
+        return s * (np.einsum("bnij,bnkj->bnik", M, M) + d * np.eye(d))
+
+    def t(x):
+        return torch.tensor(np.ascontiguousarray(x), dtype=torch.float64, device=device)
+
+    cost = tt.QuadraticCost(
+        Cxx=t(spd(dx, T + 1)), cx=t(rng.standard_normal((N, T + 1, dx))),
+        Cuu=t(spd(du, T + 1)), cu=t(rng.standard_normal((N, T + 1, du))),
+        Cxu=t(0.1 * rng.standard_normal((N, T + 1, dx, du))),
+        c0=t(0.1 * rng.standard_normal((N, T + 1))))
+    A = 0.9 * (np.eye(dx) + 0.1 * rng.standard_normal((N, T, dx, dx)))
+    B = 0.5 * rng.standard_normal((N, T, dx, du))
+    c = 0.1 * rng.standard_normal((N, T, dx))
+    nominal = tt.MatrixNormalParams(
+        mu=tt.vec_from_matrices(t(A), t(B), t(c)),
+        sigma=t(np.broadcast_to(1e-4 * np.eye(p), (N, T, p, p))))
+    ctl = tt.LinearGaussianPolicy(
+        K=t(0.1 * rng.standard_normal((N, T, du, dx))),
+        kff=t(0.1 * rng.standard_normal((N, T, du))),
+        sigma=t(np.broadcast_to(np.eye(du), (N, T, du, du))))
+    noise = t(np.broadcast_to(1e-4 * np.eye(dx), (N, T, dx, dx)))
+    mu0 = t(0.3 * rng.standard_normal((N, dx)))
+    sigma0 = t(np.broadcast_to(0.01 * np.eye(dx), (N, dx, dx)))
+    beta = torch.full((N,), 200.0, dtype=torch.float64, device=device)
+    agCpp, agcp, _ = parameter_augment_cost(nominal, beta)
+    if non_pd:
+        agCpp, agcp = 1e-12 * agCpp, 1e-12 * agcp
+    xdist0, _, _ = cubature_forward_pass(mu0, sigma0, nominal, noise, ctl)
+    if kick:
+        k = torch.tensor([0.0, 0.5, 2.0], dtype=torch.float64, device=device).repeat(N)[:N]
+        xdist0 = tt.GaussianSequence(mu=xdist0.mu + 0.3 * k[:, None, None],
+                                     sigma=xdist0.sigma * (1.0 + k[:, None, None, None]))
+    packed = cr.pack_rgps_problem(cost, ctl, noise, agCpp, agcp, beta, mu0, sigma0)
+    packed = {k: v.to(dtype) for k, v in packed.items()}
+    qmu, qsig = cr.pack_rgps_xdist(xdist0)
+    return packed, qmu.to(dtype), qsig.to(dtype)
+
+
+def errors_where_finite(name, got, ref, tol, floor=0.0):
+    """``errors`` on the entries the reference has finite, after requiring
+    the non-finite entries (NaN, ±inf) to sit in the same places."""
+    got, ref = got.double(), ref.double()
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isnan(got), torch.isnan(ref)) or not torch.equal(
+            torch.isfinite(got), fin):
+        fail(f"{name}: non-finite entries in other places than the plain version's")
+    if not bool(fin.all()):
+        log(f"  {name}: {int((~fin).sum())} non-finite entries, in the same places")
+    return errors(name, got[fin], ref[fin], tol, floor)
+
+
+def check_rgps_case(label, packed, qmu, qsig, tol, expect_bad=None):
+    """K15 then K16 against their plain versions on the same operands (K16 on
+    the plain θ*, so each kernel is held alone); returns the errors."""
+    from trajopt_torch.core import cuda_rgps as cr
+
+    mo, so, bad = cr.cuda_rgps_param_backward(packed, qmu, qsig)
+    mo_p, so_p, bad_p = cr.param_backward_plain(packed, qmu, qsig)
+    same_flags(f"K15 {label} flags", bad, bad_p)
+    if expect_bad is not None and bool(bad.all()) != expect_bad:
+        fail(f"K15 {label}: flags {bad.tolist()}, expected all {expect_bad}")
+    e15 = max(errors_where_finite(f"K15 {label} mu_opt", mo, mo_p, tol),
+              errors_where_finite(f"K15 {label} sigma_opt", so, so_p, tol))
+    kl, qm, qs = cr.cuda_rgps_cubature_kl(packed, mo_p, so_p, qmu, qsig)
+    kl_p, qm_p, qs_p = cr.cubature_kl_plain(packed, mo_p, so_p, qmu, qsig)
+    # the KL of two nearly equal Gaussians is a difference of O(1) terms:
+    # held against the scale of those terms (1), not its own
+    e16 = max(errors_where_finite(f"K16 {label} kl", kl, kl_p, tol, floor=1.0),
+              errors_where_finite(f"K16 {label} q_new mu", qm, qm_p, tol),
+              errors_where_finite(f"K16 {label} q_new sigma", qs, qs_p, tol))
+    return e15, e16
+
+
+def check_rgps_kernels(device):
+    """float64 at p = 8 and 28 with a non-PD case; float32 at bench.py:669's
+    fixed-point shape, one trip and the whole fixed point."""
+    from trajopt_torch.core import cuda_rgps as cr
+
+    log("K15/K16 checks: float64, tolerance 1e-9 of the largest entry")
+    for (dx, du), N, T in (((2, 1), 3, 5), ((4, 2), 8, 16)):
+        for non_pd in (False, True):
+            label = f"f64 dims {dx}/{du} N={N} T={T}{' non-PD' if non_pd else ''}"
+            check_rgps_case(label, *rgps_problem(N, T, dx, du, 20 + dx, torch.float64, device,
+                                                 non_pd), 1e-9, expect_bad=non_pd)
+    log(f"K15/K16 checks: float32 at T={T_RGPS_FP}, dims 4/2, one trip (tolerance "
+        f"{RGPS_F32_TRIP_TOL:.0e}) and the whole fixed point from staggered marginals, "
+        f"fp_iters={RGPS_FP_CHECK_ITERS} (tolerance {RGPS_F32_FP_TOL:.0e})")
+    errs, operands = {}, {}
+    for N in N_RGPS_FP:
+        packed, qmu, qsig = rgps_problem(N, T_RGPS_FP, 4, 2, 30 + N, torch.float32, device)
+        operands[N] = (packed, qmu, qsig)
+        errs[N] = check_rgps_case(f"f32 T={T_RGPS_FP} N={N}", packed, qmu, qsig,
+                                  RGPS_F32_TRIP_TOL)
+        packed, qmu, qsig = rgps_problem(N, T_RGPS_FP, 4, 2, 30 + N, torch.float32, device,
+                                         kick=True)
+        got = cr.rgps_fixed_point_packed(packed, qmu, qsig, fp_iters=RGPS_FP_CHECK_ITERS)
+        ref = cr.rgps_fixed_point_packed(packed, qmu, qsig, fp_iters=RGPS_FP_CHECK_ITERS,
+                                         backward=cr.param_backward_plain,
+                                         cubature=cr.cubature_kl_plain)
+        log(f"  fixed point N={N}: trips {got[5]} (plain {ref[5]}), syncs {got[6]}")
+        same_flags(f"fixed point N={N} diverged", got[4], ref[4])
+        for name, g, r in zip(("q mu", "q sigma", "mu_opt", "sigma_opt"), got[:4], ref[:4]):
+            errors(f"fixed point N={N} {name}", g, r, RGPS_F32_FP_TOL)
+    return errs, operands
+
+
+def jax_reference_trace(cfg):
+    """trajopt_tpu's float64 trace at a main-path configuration, frozen in
+    tests/torch_refs/test_torch_rgps.npz (tests/test_torch_rgps.py computes
+    it; numpy reads it here, no JAX)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from make_torch_refs import frozen
+
+    def missing():
+        fail(f"no frozen JAX trace for the {cfg} configuration")
+
+    return np.asarray(frozen("test_torch_rgps.py", f"_jax_main_path_trace-{cfg}", missing))
+
+
+def rgps_config(name):
+    import trajopt_torch
+
+    if name == "lqr":
+        return trajopt_torch.make("LQR-TO-v1"), T_RGPS_LQR, RGPS_LQR
+    return trajopt_torch.make("Robot-TO-v0", sigma_scale=1e-4), T_RGPS_ROBOT, RGPS_ROBOT
+
+
+def rgps_phases(device, card, wrappers):
+    """The robust-GPS phases: K15/K16 checks, both main-path configurations
+    with fp_engine="auto" (counts, ms per outer iteration, trace), each held
+    to the scan engine in float64 at a cut depth, run_rgps_batch at N=64, the
+    kernels' timings; returns the K15/K16 rows."""
+    from trajopt_torch.core import cuda_rgps as cr
+    from trajopt_torch.parallel.rgps import make_rgps_solver, run_rgps_batch
+
+    wrappers.update(K15=cr.cuda_rgps_param_backward, K16=cr.cuda_rgps_cubature_kl)
+    errs, operands = check_rgps_kernels(device)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def counters():
+        return {"K15": cr.cuda_rgps_param_backward.launches,
+                "K16": cr.cuda_rgps_cubature_kl.launches,
+                "trips": cr.cuda_rgps_fixed_point.trips, "syncs": cr.cuda_rgps_fixed_point.syncs}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        cr.cuda_rgps_fixed_point.trips = cr.cuda_rgps_fixed_point.syncs = 0
+
+    main = {}
+    for cfg in ("lqr", "robot"):
+        env, T, kw = rgps_config(cfg)
+        solve = make_rgps_solver(env, T, fp_engine="auto", **kw, **f32)
+        inner = solve.batched
+        if inner.fp_engine != "cuda":
+            fail(f"fp_engine='auto' resolved to {inner.fp_engine!r} on the card")
+        mu0, sigma0 = (x.to(**f32) for x in env.init())
+        reset()
+        state = inner.init(mu0[None], sigma0[None])
+        trace, ms, counts = [state.last_return.item()], [], []
+        for _ in range(kw["nb_iter"]):
+            before = dict(counters(), fixed_points=inner.fixed_points)
+            t0 = time.perf_counter()
+            state = inner.iteration(state)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            trace.append(state.last_return.item())
+            after = dict(counters(), fixed_points=inner.fixed_points)
+            counts.append({k: after[k] - before[k] for k in after})
+        launches = {k: w.launches for k, w in wrappers.items()}
+        total = counters()
+        log(json.dumps({"rgps_main_path": cfg, "launches": launches,
+                        "per_iteration": counts}))
+        others = {k: v for k, v in launches.items() if k not in ("K15", "K16") and v}
+        if others:
+            fail(f"RGPS {cfg} launched other kernels: {others}")
+        if not (total["K15"] == total["K16"] == total["trips"] > 0):
+            fail(f"RGPS {cfg}: K15 {total['K15']}, K16 {total['K16']} launches for "
+                 f"{total['trips']} trips")
+        for c in counts:
+            if c["syncs"] != c["trips"] + c["fixed_points"]:
+                fail(f"RGPS {cfg}: {c['syncs']} host syncs for {c['trips']} trips of "
+                     f"{c['fixed_points']} fixed points")
+        if not all(math.isfinite(x) for x in trace):
+            fail(f"RGPS {cfg}: non-finite trace {trace}")
+        if not all(b <= a for a, b in zip(trace, trace[1:])):
+            fail(f"RGPS {cfg}: the trace {trace} increases")
+        want = jax_reference_trace(cfg)
+        rel = float(np.max(np.abs(np.asarray(trace) - want) / np.abs(want)))
+        log(json.dumps({"rgps_trace_vs_jax_f64": cfg, "jax": want.tolist(), "card": trace,
+                        "max_rel_err": rel, "tol": RGPS_TRACE_TOL}))
+        if not rel <= RGPS_TRACE_TOL:
+            fail(f"RGPS {cfg}: the trace {trace} is {rel:.2e} from JAX's {want.tolist()}")
+        main[cfg] = dict(total, fixed_points=inner.fixed_points,
+                         per_iteration={"counts": counts, "ms": ms})
+        log(json.dumps({"metric": "rgps_solve", "config": f"{env.__class__.__name__} T={T} "
+                        f"{json.dumps(kw)} fp_engine=auto->cuda float32",
+                        "ms_per_outer_iteration": ms, "trace": trace,
+                        "launches_per_iteration": [c["K15"] for c in counts],
+                        "trips_per_iteration": [c["trips"] for c in counts],
+                        "syncs_per_iteration": [c["syncs"] for c in counts],
+                        "fixed_points_per_iteration": [c["fixed_points"] for c in counts],
+                        "gpu": card}))
+
+    # the kernels' share of an outer iteration: K15 and K16 at each
+    # configuration's own shape (N=1; seeded operands, the same work per
+    # step), their device time per launch times the launches per iteration,
+    # over the iteration's wall time (torch.profiler over one iteration took
+    # longer than the whole script's limit)
+    for cfg, (dx, du) in (("lqr", (2, 1)), ("robot", (4, 2))):
+        T = rgps_config(cfg)[1]
+        packed, qmu, qsig = rgps_problem(1, T, dx, du, 40, torch.float32, device)
+        mo, so, _ = cr.cuda_rgps_param_backward(packed, qmu, qsig)
+        k15_ms = device_ms_back_to_back(lambda: cr.cuda_rgps_param_backward(packed, qmu, qsig),
+                                        20)[0]
+        k16_ms = device_ms_back_to_back(
+            lambda: cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig), 20)[0]
+        per_it = main[cfg]["per_iteration"]
+        log(json.dumps({"metric": "rgps_kernel_share", "config": cfg, "T": T, "N": 1,
+                        "k15_ms": k15_ms, "k16_ms": k16_ms,
+                        "kernel_ms_per_iteration": [c["K15"] * (k15_ms + k16_ms)
+                                                    for c in per_it["counts"]],
+                        "share_of_wall": [c["K15"] * (k15_ms + k16_ms) / w
+                                          for c, w in zip(per_it["counts"], per_it["ms"])],
+                        "gpu": card}))
+
+    # each configuration held to the scan engine in float64 at a cut depth
+    k64 = dict(dtype=torch.float64, device=device)
+    for cfg in ("lqr", "robot"):
+        env, T, kw = rgps_config(cfg)
+        kw = dict(kw, **RGPS_SCAN_CUT)
+        mu0, sigma0 = (x.to(**k64) for x in env.init())
+        res = {}
+        for e in ("cuda", "scan"):
+            (st, tr), sec = timed(lambda: make_rgps_solver(env, T, fp_engine=e, **kw, **k64)(
+                mu0, sigma0))
+            res[e] = (st, tr, sec)
+        for name, g, r in (("trace", res["cuda"][1], res["scan"][1]),
+                           ("K", res["cuda"][0].ctl.K, res["scan"][0].ctl.K),
+                           ("kff", res["cuda"][0].ctl.kff, res["scan"][0].ctl.kff),
+                           ("beta", res["cuda"][0].beta, res["scan"][0].beta)):
+            errors(f"RGPS {cfg} f64 cuda vs scan {name} ({json.dumps(RGPS_SCAN_CUT)})", g, r,
+                   RGPS_F64_ENGINE_TOL)
+        log(json.dumps({"rgps_f64_engines": cfg, "seconds_cuda": res["cuda"][2] / 1e3,
+                        "seconds_scan": res["scan"][2] / 1e3}))
+
+    # run_rgps_batch at N=64 on LQR-TO-v1
+    env, T, kw = rgps_config("lqr")
+    reset()
+    kw = dict(kw, nb_iter=RGPS_BATCH_ITER)
+    out, batch_ms = timed(lambda: run_rgps_batch(
+        env, torch.Generator(device=device).manual_seed(0), N_RGPS_BATCH, T, **kw, **f32))
+    batch_counts = counters()
+    if not bool(torch.isfinite(out["trace"]).all()):
+        fail("run_rgps_batch: non-finite traces")
+    if not (batch_counts["K15"] == batch_counts["K16"] == batch_counts["trips"] > 0):
+        fail(f"run_rgps_batch counts {batch_counts}")
+    log(json.dumps({"metric": "rgps_batch", "config": f"LQR-TO-v1 T={T} N={N_RGPS_BATCH} "
+                    f"{json.dumps(kw)} float32", "ms": batch_ms,
+                    "ms_per_outer_iteration": batch_ms / kw["nb_iter"],
+                    "instance_iterations_per_s": N_RGPS_BATCH * kw["nb_iter"] / batch_ms * 1e3,
+                    "counts": batch_counts, "final_trace_mean": out["trace"][:, -1].mean().item(),
+                    "gpu": card}))
+
+    # the kernels' timings at bench.py:669's shape (T=100, dims 4/2, N=64)
+    packed, qmu, qsig = operands[N_RGPS_FP[-1]]
+    N, T = qmu.shape[-1], T_RGPS_FP
+    mo, so, bad = cr.cuda_rgps_param_backward(packed, qmu, qsig)
+    kl, qm, qs = cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig)
+    k15_in = [packed[k] for k in cr._BACKWARD_KEYS] + [qmu, qsig, packed["bpe"], packed["vT"],
+                                                       packed["vvT"], packed["v0T"]]
+    k16_in = [mo, so] + [packed[k] for k in ("sigd", "K", "kff", "sigc", "mu0", "sig0")] + [
+        qmu, qsig]
+    calls = {
+        "K15": (lambda: cr.cuda_rgps_param_backward(packed, qmu, qsig),
+                lambda: cr.param_backward_plain(packed, qmu, qsig),
+                nbytes(*k15_in, mo, so, bad), k15_operations(T, N, 4, 2),
+                ("K15 rgps_param_backward", 151)),
+        "K16": (lambda: cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig),
+                lambda: cr.cubature_kl_plain(packed, mo, so, qmu, qsig),
+                nbytes(*k16_in, kl, qm, qs), k16_operations(T, N, 4, 2),
+                ("K16 rgps_cubature_kl", 534)),
+    }
+    rows = []
+    for k, (call, plain, moved, ops, (name, line)) in calls.items():
+        device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 20)
+        _, plain_ms = timed(plain)
+        bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+        row = {
+            "name": name, "route": "cuda", "source": "trajopt_torch/csrc/rgps.cu",
+            "replaces": f"trajopt_tpu/core/pallas_rgps.py:{line}",
+            "launches": main["lqr"][k] + main["robot"][k],
+            "max_abs_err": max(e[0 if k == "K15" else 1] for e in errs.values()),
+            "ms": device_ms, "call_ms": time_cuda(call, 20), "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            # no single PyTorch call computes an adversary MatrixNormal sweep
+            # or a cubature-KL step
+            "library_ms": None,
+        }
+        rows.append(row)
+        log(json.dumps({"metric": "kernel", "shape": f"T={T} N={N} dims 4/2 float32 "
+                        "(bench.py:669)", **row, "launches_lqr": main["lqr"][k],
+                        "launches_robot": main["robot"][k],
+                        "enqueue_ms_per_call": enqueue_ms / 20, "bytes": moved,
+                        "operations": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                        "gpu": card}))
+    return rows
+
+
 def main():
     global torch
     import torch
@@ -2069,6 +2473,8 @@ def main():
     rows.append(bsp_episode_phase(dev, card, wrappers))
     log(f"[{time.perf_counter() - t_start:.0f} s] eLQR phases")
     rows += elqr_phases(dev, card, wrappers)
+    log(f"[{time.perf_counter() - t_start:.0f} s] robust-GPS phases")
+    rows += rgps_phases(dev, card, wrappers)
     log(f"[{time.perf_counter() - t_start:.0f} s] done")
 
     # 17. the kernels line, then the device line last

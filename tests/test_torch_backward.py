@@ -1,6 +1,7 @@
 """Parity of the port's backward passes with trajopt_tpu's, float64 on the CPU:
 the scan ``ilqr_backward`` against JAX's, and K4's plain version against the
-interpret-mode ``pallas_ilqr_backward`` (K1's is in test_torch_fused.py)."""
+interpret-mode ``pallas_ilqr_backward`` (K1's is in test_torch_fused.py).  The
+JAX references are frozen (``tests/make_torch_refs.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,8 @@ from trajopt_torch.core.types import QuadraticCost
 from trajopt_tpu.core import scan_lqr as jax_scan
 from trajopt_tpu.core import types as jax_types
 from trajopt_tpu.core.pallas_lqr import pallas_ilqr_backward
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -79,7 +82,8 @@ def test_scan_ilqr_backward_matches_jax(reg, lam, dims, non_pd):
     N, T = 3, 10
     cost, A, B = _random_lqr(np.random.default_rng(reg + 10 * du), N, T, dx, du, non_pd)
     lam_v = np.full(N, lam)
-    K_j, kff_j, V_j, dV_j, div_j = _jax_scan(cost, A, B, lam_v, reg)
+    K_j, kff_j, V_j, dV_j, div_j = frozen(__file__, f"scan-{reg}-{lam}-{dims}-{non_pd}",
+                                          lambda: _jax_scan(cost, A, B, lam_v, reg))
     pol, value, _, dV_t, div_t = ilqr_backward(
         _torch_cost(cost), torch.as_tensor(A), torch.as_tensor(B), torch.as_tensor(lam_v), reg
     )
@@ -103,9 +107,9 @@ def test_k4_plain_matches_pallas_interpret(reg, lam, dims, non_pd):
     # compiled with the lane packing: run eagerly, each packing operation
     # would compile on its own
     args = (jc, jnp.asarray(A), jnp.asarray(B), jnp.asarray(lam_v))
-    pol_j, dV_j, div_j = _compiled(
+    pol_j, dV_j, div_j = frozen(__file__, f"k4-{reg}-{lam}-{dims}-{non_pd}", lambda: _compiled(
         lambda c, A, B, lam: pallas_ilqr_backward(c, A, B, lam, reg, time_chunk=1,
-                                                  interpret=True), *args)(*args)
+                                                  interpret=True), *args)(*args))
     n_pad = lane_pad(N)
     packed = pack_lanes(_torch_cost(cost), torch.as_tensor(A), torch.as_tensor(B), n_pad)
     K_l, kff_l, dV_l, bad_l = cuda_ilqr_backward_packed(

@@ -8,7 +8,7 @@ the dense ``bsp_backward`` against JAX's; and the plain version of K8
 (``core/cuda_belief``, which runs for CPU tensors) against interpret-mode
 ``pallas_bsp_backward`` (``time_chunk=1``) at rtol 1e-9 with equal flags,
 instance 0 of the batch non-PD (``tests/belief_fixtures.py``).  Each JAX
-reference is compiled once per module.
+reference is compiled once per module and frozen (``tests/make_torch_refs.py``).
 """
 
 import dataclasses
@@ -30,6 +30,8 @@ from trajopt_torch.utils.convert import env_from_fields
 from trajopt_tpu.core import belief as jb
 from trajopt_tpu.core import ekf as jekf
 from trajopt_tpu.core.pallas_belief import pallas_bsp_backward
+
+from make_torch_refs import reference
 
 torch.set_num_threads(1)
 
@@ -67,6 +69,11 @@ def _inputs(name):
 
 @functools.lru_cache(maxsize=None)
 def _jax_outputs(name):
+    return _jax_outputs_ref(name), trajopt_tpu.make(name)
+
+
+@reference(__file__)
+def _jax_outputs_ref(name):
     """Every JAX reference of one env, one compiled program."""
     env = trajopt_tpu.make(name)
     filt = jekf.EKF(env)
@@ -94,7 +101,7 @@ def _jax_outputs(name):
 
     x = _inputs(name)
     args = [jnp.asarray(x[k]) for k in ("mu", "sig", "u", "z", "eps_dyn", "eps_obs")]
-    return jax.tree.map(np.asarray, _compiled(run, *args)(*args)), env
+    return jax.tree.map(np.asarray, _compiled(run, *args)(*args))
 
 
 def _port(name):
@@ -203,16 +210,23 @@ def test_float32_jitters_match():
     rng = np.random.default_rng(5)
     M = rng.standard_normal((4, 2, 2))
     M = np.einsum("nij,nkj->nik", M, M) + 1e-3 * np.eye(2)
-    for dtype, jdtype in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+    for dtype, jdtype in ((torch.float64, "float64"), (torch.float32, "float32")):
         got_inv = tekf._inv(torch.as_tensor(M, dtype=dtype))
         got_floor = tekf._psd_floor(torch.as_tensor(M, dtype=dtype))
-        want_inv = jax.vmap(jekf._inv)(jnp.asarray(M, jdtype))
-        want_floor = jax.vmap(jekf._psd_floor)(jnp.asarray(M, jdtype))
+        want_inv, want_floor = _jitter_ref(jdtype)
         tol = TOL if dtype == torch.float64 else dict(rtol=1e-5, atol=1e-6)
         _close(got_inv, np.asarray(want_inv), tol, "inv")
         _close(got_floor, np.asarray(want_floor), tol, "floor")
         assert got_floor.dtype == dtype
         assert torch.equal(got_floor, torch.as_tensor(M, dtype=dtype)) == (dtype == torch.float64)
+
+
+@reference(__file__)
+def _jitter_ref(jdtype):
+    rng = np.random.default_rng(5)
+    M = rng.standard_normal((4, 2, 2))
+    M = jnp.asarray(np.einsum("nij,nkj->nik", M, M) + 1e-3 * np.eye(2), jdtype)
+    return jax.vmap(jekf._inv)(M), jax.vmap(jekf._psd_floor)(M)
 
 
 N, TB = 5, 6
@@ -235,11 +249,25 @@ def _outputs(out):
     return [np.asarray(policy.K), np.asarray(policy.kff)] + [np.asarray(r) for r in rest]
 
 
+@reference(__file__)
+def _scan_ref(b, bad, reg):
+    cost, dyn, lam = _belief_problem(b, bad)
+    return _outputs(_compiled(jax.vmap(lambda c, d, l: jb.bsp_backward(c, d, l, reg)),
+                              cost, dyn, lam)(cost, dyn, lam))
+
+
+@reference(__file__)
+def _pallas_ref(reg):
+    cost, dyn, lam = _belief_problem(2, True)
+    return _outputs(_compiled(
+        lambda c, d, lm: pallas_bsp_backward(c, d, lm, reg, time_chunk=1, interpret=True),
+        cost, dyn, lam)(cost, dyn, lam))
+
+
 @pytest.mark.parametrize("reg", [1, 2])
 def test_bsp_backward_matches_jax(reg):
     cost, dyn, lam = _belief_problem(2, True)
-    want = _outputs(_compiled(jax.vmap(lambda c, d, l: jb.bsp_backward(c, d, l, reg)),
-                              cost, dyn, lam)(cost, dyn, lam))
+    want = _scan_ref(2, True, reg)
     got = _outputs(tb.bsp_backward(*_to_torch(cost, dyn), torch.tensor(LAMS, dtype=torch.float64), reg))
     for name, g, w in zip(("K", "kff", "S", "s", "tau", "dS"), got, want):
         np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9, err_msg=name)
@@ -252,9 +280,7 @@ def test_k8_plain_matches_pallas_interpret(reg):
     """b = 2: interpret-mode Pallas, instance 0 non-PD (the guard keeps it
     finite and flags it in both)."""
     cost, dyn, lam = _belief_problem(2, True)
-    want = _outputs(_compiled(
-        lambda c, d, lm: pallas_bsp_backward(c, d, lm, reg, time_chunk=1, interpret=True),
-        cost, dyn, lam)(cost, dyn, lam))
+    want = _pallas_ref(reg)
     got = _outputs(cuda_belief.cuda_bsp_backward(*_to_torch(cost, dyn), torch.tensor(LAMS, dtype=torch.float64),
                                                  reg))
     for name, g, w in zip(("K", "kff", "S", "s", "tau", "dS"), got, want):
@@ -267,8 +293,7 @@ def test_k8_plain_b4_matches_scan():
     """b = 4 (Car's dims), every instance PD: the guard never acts, so K8's
     plain version equals JAX's scan recursion."""
     cost, dyn, lam = _belief_problem(4, False)
-    want = _outputs(_compiled(jax.vmap(lambda c, d, l: jb.bsp_backward(c, d, l, 2)),
-                              cost, dyn, lam)(cost, dyn, lam))
+    want = _scan_ref(4, False, 2)
     got = _outputs(cuda_belief.cuda_bsp_backward(*_to_torch(cost, dyn), torch.tensor(LAMS, dtype=torch.float64),
                                                  2))
     for name, g, w in zip(("K", "kff", "S", "s", "tau", "dS"), got, want):

@@ -11,7 +11,8 @@ scan engine on three beliefs; the scan and cuda runners (the latter K10's
 plain version) with the standard normals handed in against a JAX loop built
 as tests/test_pallas_bsp.py:175-218 builds it, over 5 steps;
 ``run_bsp_mpc_batch``; the convert round trip; the raises.  The JAX solvers
-are compiled once, as one program.
+are compiled once, as one program, and their outputs frozen
+(``tests/make_torch_refs.py``).
 """
 
 import dataclasses
@@ -30,6 +31,8 @@ from trajopt_torch.parallel import bsp as port
 from trajopt_torch.utils.convert import bsp_state_from_numpy, bsp_state_to_numpy, env_from_fields
 from trajopt_tpu.core.ekf import EKF as JaxEKF
 from trajopt_tpu.parallel import bsp as jax_bsp
+
+from make_torch_refs import reference
 
 torch.set_num_threads(1)
 
@@ -68,6 +71,7 @@ def _jax_solvers():
 
 
 @functools.lru_cache(maxsize=None)
+@reference(__file__)
 def _solves():
     jenv = _envs({})[0]
     out = _jax_solvers()(*jenv.init(), jnp.asarray(MU0S), jnp.asarray(SIGMA0S))
@@ -125,6 +129,7 @@ def test_batched_solver_matches_jax(engine, monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
+@reference(__file__)
 def _reference_episode():
     """JAX's episode loop with every draw mean + chol(cov)·ε
     (tests/test_pallas_bsp.py:175-218), on normals made with numpy."""

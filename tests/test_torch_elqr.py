@@ -9,7 +9,8 @@ the host ``eLQR`` on LQR-TO-v0 (T=20, 5 iterations); the raises.  The
 initial feedforward is JAX's draw, handed to the port as ``kff_init``.
 Where eLQR re-chooses the state at the goal, kff is rounding residue (of
 order 1e-54), held by the absolute part of the tolerance.  The JAX
-references are compiled once, as one program."""
+references are compiled once, as one program, and frozen
+(``tests/make_torch_refs.py``)."""
 
 import dataclasses
 import functools
@@ -31,6 +32,8 @@ from trajopt_tpu.core import diff as jax_diff
 from trajopt_tpu.envs import base as jax_base
 from trajopt_tpu.parallel import elqr as jax_par
 from trajopt_tpu.solvers import elqr as jax_elqr
+
+from make_torch_refs import reference
 
 torch.set_num_threads(1)
 
@@ -79,6 +82,7 @@ def _inverse_points(name):
 
 
 @functools.lru_cache(maxsize=None)
+@reference(__file__)
 def _jax_points():
     """One program: per env, the inverse dynamics, its backward RK4 and its
     Jacobians at ``_inverse_points``, and the quadratization at ``_points``."""
@@ -129,6 +133,7 @@ def _kff0(key, T, du):
 
 
 @functools.lru_cache(maxsize=None)
+@reference(__file__)
 def _jax_results():
     """One program: the two single-problem solves and their initial kff."""
     cfgs = [CARTPOLE, PENDULUM]
@@ -164,20 +169,28 @@ def test_make_elqr_solver_matches_jax(cfg):
         np.testing.assert_allclose(got.numpy(), w, **TOL)
 
 
-def test_host_elqr_matches_jax_on_lqr():
-    jenv, env = _envs("LQR-TO-v0")
-    T, it = 20, 5
+@reference(__file__)
+def _jax_host(T, it):
+    """The host eLQR on LQR-TO-v0: trace, final reference, controller, kff0."""
+    jenv = _envs("LQR-TO-v0")[0]
     key = jax.random.PRNGKey(0)
     jsolver = jax_elqr.eLQR(jenv, T, init_state=np.asarray(jenv.x0, dtype=float), key=key)
     want = jsolver.run(nb_iter=it)
-    kff0 = np.asarray(_kff0(key, T, 1))
-    solver = port.eLQR(env, T, np.asarray(env.x0, dtype=float), kff_init=_t(kff0),
+    return dict(trace=want, xref=jsolver.xref, uref=jsolver.uref, ctl=jsolver.ctl,
+                kff0=_kff0(key, T, 1))
+
+
+def test_host_elqr_matches_jax_on_lqr():
+    env = _envs("LQR-TO-v0")[1]
+    T, it = 20, 5
+    ref = _jax_host(T, it)
+    solver = port.eLQR(env, T, np.asarray(env.x0, dtype=float), kff_init=_t(ref["kff0"]),
                        device="cpu", dtype=torch.float64)
     trace = solver.run(nb_iter=it)
-    np.testing.assert_allclose(trace, want, **TOL)
-    np.testing.assert_allclose(solver.xref.numpy(), np.asarray(jsolver.xref), **TOL)
-    np.testing.assert_allclose(solver.uref.numpy(), np.asarray(jsolver.uref), **TOL)
-    _check_policy(solver.ctl, jax.tree.map(np.asarray, jsolver.ctl))
+    np.testing.assert_allclose(trace, ref["trace"], **TOL)
+    np.testing.assert_allclose(solver.xref.numpy(), ref["xref"], **TOL)
+    np.testing.assert_allclose(solver.uref.numpy(), ref["uref"], **TOL)
+    _check_policy(solver.ctl, ref["ctl"])
     assert trace[-1] < trace[0]
     with pytest.raises(NotImplementedError, match="row 16"):
         solver.plot()

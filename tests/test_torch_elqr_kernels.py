@@ -19,7 +19,8 @@ reference is compiled once for one instance.
 Not run here: the interpret-mode Pallas eLQR kernels.  One call of those
 costs 15–36 s on a CPU even at T=4 with one iteration, and
 tests/test_pallas_elqr.py already holds them to the scan engine this file
-holds the plain versions to."""
+holds the plain versions to.  The JAX references are frozen
+(``tests/make_torch_refs.py``)."""
 
 import dataclasses
 import functools
@@ -46,6 +47,8 @@ from trajopt_torch.utils.convert import (
 from trajopt_tpu.core.types import LinearPolicy as JaxPolicy
 from trajopt_tpu.core.types import QuadraticValue as JaxValue
 from trajopt_tpu.solvers import elqr as jax_elqr
+
+from make_torch_refs import reference
 
 torch.set_num_threads(1)
 
@@ -89,6 +92,7 @@ class _PerInstance:
 
 
 @functools.lru_cache(maxsize=None)
+@reference(__file__)
 def _jax_results():
     """Per env, JAX's iteration (the body of ``make_elqr_solver``'s loop:
     forward sweep, backward sweep, rollout) compiled once: the first from K

@@ -1,6 +1,7 @@
 """Parity of the port's Cartpole environments (trajopt_torch/envs) with
 trajopt_tpu's, float64 on the CPU: dynamics, cost, the tile protocol, the tile
-physics of the rollout kernels, and JAX's derivative of ``clip`` at a bound."""
+physics of the rollout kernels, and JAX's derivative of ``clip`` at a bound.  The
+jitted JAX references are frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 
@@ -17,6 +18,8 @@ from trajopt_torch.core.diff import linearize_dynamics_delta
 from trajopt_torch.envs.base import clip
 from trajopt_torch.utils.convert import env_from_fields
 from trajopt_tpu.core import pallas_rollout as jax_tiles
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -52,11 +55,12 @@ def _samples(env, n=16, seed=0):
 def test_dynamics_and_cost_match(name, kw):
     jenv, tenv = _envs(name, kw)
     x, u, ul, w = _samples(jenv)
-    xn_j = jax.jit(jax.vmap(jenv.dynamics))(jnp.asarray(x), jnp.asarray(u))
+    xn_j, c_j = frozen(__file__, f"dynamics-cost-{name}-{kw}", lambda: (
+        jax.jit(jax.vmap(jenv.dynamics))(jnp.asarray(x), jnp.asarray(u)),
+        jax.jit(jax.vmap(jenv.cost))(jnp.asarray(x), jnp.asarray(u), jnp.asarray(ul),
+                                     jnp.asarray(w))))
     xn_t = tenv.dynamics(torch.as_tensor(x), torch.as_tensor(u))
     np.testing.assert_allclose(xn_t.numpy(), np.asarray(xn_j), rtol=RTOL, atol=1e-13)
-    c_j = jax.jit(jax.vmap(jenv.cost))(jnp.asarray(x), jnp.asarray(u), jnp.asarray(ul),
-                                       jnp.asarray(w))
     c_t = tenv.cost(torch.as_tensor(x), torch.as_tensor(u), torch.as_tensor(ul),
                     torch.as_tensor(w))
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=RTOL)
@@ -93,8 +97,8 @@ def test_clip_tie_gradient_matches_jax():
     """jnp.clip's derivative is 0.5 exactly at a bound (torch.clamp's is 1):
     the port's clip must give JAX's 1 / 0.5 / 0 in both AD modes."""
     vals = np.array([3.0, 10.0, -10.0, 11.0, -12.0])
-    g_j = np.asarray(jax.jit(jax.vmap(jax.grad(lambda u: jnp.clip(u, -10.0, 10.0))))(
-        jnp.asarray(vals)))
+    g_j = frozen(__file__, "clip-grad", lambda: jax.jit(jax.vmap(jax.grad(
+        lambda u: jnp.clip(u, -10.0, 10.0))))(jnp.asarray(vals)))
     lo, hi = torch.tensor(-10.0, dtype=torch.float64), torch.tensor(10.0, dtype=torch.float64)
 
     def f(u):
@@ -116,7 +120,8 @@ def test_linearization_at_saturation_matches(name, kw):
 
     jenv, tenv = _envs(name, kw)
     x, u, _, _ = _samples(jenv, seed=2)
-    A_j, B_j = jax.jit(lambda a, b: jax_lin(jenv.dynamics, a, b))(jnp.asarray(x), jnp.asarray(u))
+    A_j, B_j = frozen(__file__, f"linearization-{name}-{kw}", lambda: jax.jit(
+        lambda a, b: jax_lin(jenv.dynamics, a, b))(jnp.asarray(x), jnp.asarray(u)))
     A_t, B_t = linearize_dynamics_delta(tenv.dynamics, torch.as_tensor(x), torch.as_tensor(u))
     np.testing.assert_allclose(A_t.numpy(), np.asarray(A_j), rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(B_t.numpy(), np.asarray(B_j), rtol=1e-10, atol=1e-12)
@@ -130,7 +135,7 @@ def test_linearization_at_saturation_matches(name, kw):
 def test_registry_and_fields():
     assert set(trajopt_torch.registered()) == {
         "Car-TO-v0", "Cartpole-TO-v0", "Cartpole-TO-v1", "LightDark-TO-v0", "LQR-TO-v0",
-        "LQR-TO-v1", "LQR-TO-v2", "Pendulum-TO-v0", "Pendulum-TO-v1",
+        "LQR-TO-v1", "LQR-TO-v2", "Pendulum-TO-v0", "Pendulum-TO-v1", "Robot-TO-v0",
     }
     for name in trajopt_torch.registered():
         jenv = trajopt_tpu.make(name)

@@ -4,9 +4,11 @@ CPU: Cartpole v0 on a trajectory with actions exactly at ±umax, v1 (cos/sin
 features) with reg 2, and the slew-rate cost under a sigmoid activation.
 
 The interpret-mode kernel runs with ``time_chunk=1``: the interpreter compiles
-the unrolled chunk body, so one step per grid trip keeps the call short."""
+the unrolled chunk body, so one step per grid trip keeps the call short.  The
+JAX references and trajectories are frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,8 @@ from trajopt_torch.utils.convert import env_from_fields
 from trajopt_tpu.core.pallas_fused import pallas_ilqr_backward_fused
 from trajopt_tpu.core.pallas_lqr import _to_lanes, pack_scalar, unpack_lanes
 from trajopt_tpu.solvers.common import make_weighting as jax_weighting
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -40,6 +44,12 @@ def _compiled(f, *args):
 def _trajectory(jenv, N, T, seed, saturate=False):
     """Reference trajectory rolled out with the JAX env; ``saturate`` puts
     actions exactly at ±umax on half the steps."""
+    key = hashlib.sha256(repr((jenv, N, T, seed, saturate)).encode()).hexdigest()[:16]
+    return frozen(__file__, f"trajectory-{key}",
+                  lambda: _trajectory_live(jenv, N, T, seed, saturate))
+
+
+def _trajectory_live(jenv, N, T, seed, saturate):
     rng = np.random.default_rng(seed)
     us = 0.3 * rng.standard_normal((N, T, jenv.dm_act))
     if saturate:
@@ -86,7 +96,8 @@ def test_k1_plain_matches_pallas_fused_interpret(name, kw, reg, lam, saturate, a
 
     args = (*(jnp.asarray(a) for a in (xref, uref, ulast)), jax_weighting(T, activation),
             jnp.asarray(lam_v))
-    pol_j, dV_j, div_j = _compiled(reference, *args)(*args)
+    pol_j, dV_j, div_j = frozen(__file__, f"k1-{name}-{kw}-{reg}-{lam}-{saturate}-{activation}",
+                                lambda: _compiled(reference, *args)(*args))
 
     n_pad = lane_pad(N)
     w_t = make_weighting(T, activation, device="cpu", dtype=torch.float64)

@@ -10,7 +10,8 @@ against JAX's ``engine="scan"`` on JAX's own configuration
 (tests/test_pallas_gps.py: LQR-TO-v0, sigma_scale=1e-4, N=3, T=10,
 nb_iter=2, bisect_iters=8); the GPS state's round trip through numpy; the
 unported options raise.  The initial kff is JAX's draw, handed in.  Each JAX
-reference is compiled once, the four single-problem solves as one program."""
+reference is compiled once, the four single-problem solves as one program,
+and frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 
@@ -31,6 +32,8 @@ from trajopt_tpu.core import diff as jax_diff
 from trajopt_tpu.core import ekf as jax_ekf
 from trajopt_tpu.core.types import LinearGaussianPolicy as JaxPolicy
 from trajopt_tpu.parallel import gps as jax_gps
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -69,10 +72,12 @@ def test_lqr_dynamics_and_cost_match(name):
     rng = np.random.default_rng(0)
     x = np.asarray(jenv.x0) + 3.0 * rng.standard_normal((6, 2))
     u, ul, w = rng.standard_normal((6, 1)), rng.standard_normal((6, 1)), rng.uniform(0.5, 1.5, 6)
-    xn = jax.jit(jax.vmap(jenv.dynamics))(jnp.asarray(x), jnp.asarray(u))
+    xn = frozen(__file__, f"{name}-dynamics",
+                lambda: jax.jit(jax.vmap(jenv.dynamics))(jnp.asarray(x), jnp.asarray(u)))
     np.testing.assert_allclose(tenv.dynamics(torch.as_tensor(x), torch.as_tensor(u)).numpy(),
                                np.asarray(xn), **TOL)
-    c = jax.jit(jax.vmap(jenv.cost))(*(jnp.asarray(a) for a in (x, u, ul, w)))
+    c = frozen(__file__, f"{name}-cost",
+               lambda: jax.jit(jax.vmap(jenv.cost))(*(jnp.asarray(a) for a in (x, u, ul, w))))
     np.testing.assert_allclose(tenv.cost(*(torch.as_tensor(a) for a in (x, u, ul, w))).numpy(),
                                np.asarray(c), **TOL)
     np.testing.assert_allclose(tenv.sigma.numpy(), np.asarray(jenv.sigma), rtol=0)
@@ -116,7 +121,7 @@ def pendulum():
                 jax_ekf.extended_kalman(jenv, JaxPolicy(K=K, kff=k, sigma=sig), m0, s0))
 
     args = [jnp.asarray(a) for a in (xs, us, pol["K"], pol["kff"], pol["sigma"], mu0, sigma0)]
-    ref = _np(_compiled(jax.vmap(one), *args)(*args))
+    ref = frozen(__file__, "pendulum", lambda: _np(_compiled(jax.vmap(one), *args)(*args)))
     return dict(tenv=tenv, xs=xs, us=us, w=w, pol=pol, mu0=mu0, sigma0=sigma0, ref=ref)
 
 
@@ -165,8 +170,9 @@ def single_ref():
         jenv = trajopt_tpu.make(name, **env_kw)
         solvers.append(jax_gps.make_mbgps_solver(jenv, T, **SINGLE_KW, **kw))
         inits.append(tuple(jnp.asarray(np.asarray(a)) for a in jenv.init()))
-    outs = _compiled(lambda a: [solve(key, *x) for solve, x in zip(solvers, a)], inits)(inits)
-    kff0 = 1e-4 * np.asarray(jax.random.normal(key, (T, 1), jnp.float64))
+    outs, kff0 = frozen(__file__, "single", lambda: (
+        _compiled(lambda a: [solve(key, *x) for solve, x in zip(solvers, a)], inits)(inits),
+        1e-4 * np.asarray(jax.random.normal(key, (T, 1), jnp.float64))))
     return T, kff0, [(_np(x), _np(o)) for x, o in zip(inits, outs)]
 
 
@@ -200,8 +206,9 @@ def batched_ref():
     solve = jax_gps.make_mbgps_solver_batched(jenv, T, nb_iter=2, kl_bound=2.0, bisect_iters=8,
                                               engine="scan")
     args = (keys, jnp.asarray(mu0s), jnp.asarray(sigma0s))
-    jstate, jtrace = _compiled(solve, *args)(*args)
-    kff0 = 1e-4 * np.asarray(jax.vmap(lambda k: jax.random.normal(k, (T, 1), jnp.float64))(keys))
+    jstate, jtrace, kff0 = frozen(__file__, "batched", lambda: (
+        *_compiled(solve, *args)(*args),
+        1e-4 * np.asarray(jax.vmap(lambda k: jax.random.normal(k, (T, 1), jnp.float64))(keys))))
     return dict(tenv=tenv, T=T, mu0s=mu0s, sigma0s=sigma0s, kff0=kff0, jstate=jstate,
                 jtrace=np.asarray(jtrace))
 

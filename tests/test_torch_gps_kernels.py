@@ -10,7 +10,8 @@ instance 2 has a non-PD −Quu at t = 1: the kernels keep it finite and flag
 it, the scan chain flags it with NaN, each as its JAX engine does.  Instance
 3 has it at t = T/2 with α = 1e-16, where the guarded value recursion of
 both the TPU kernel and K6 runs to ±inf by t = 0: flags and the places of
-the non-finite entries agree too.  Each JAX reference runs once per module."""
+the non-finite entries agree too.  Each JAX reference runs once per module
+and is frozen (``tests/make_torch_refs.py``)."""
 
 import functools
 
@@ -26,6 +27,8 @@ from trajopt_torch.core import types as tt
 from trajopt_tpu.core import pallas_gps as jax_pallas
 from trajopt_tpu.core import scan_lqr as jax_scan
 from trajopt_tpu.core import types as jt
+
+from make_torch_refs import frozen, reference
 
 torch.set_num_threads(1)
 
@@ -100,7 +103,7 @@ def _scan(dims):
     """(JAX's, the port's) scan chain outputs on the problem of ``dims``."""
     p = _problem(*dims)
     args = _containers(p, jt, jnp.asarray)
-    ref = jax.tree.map(np.asarray, _compiled(_jax_chain, *args)(*args))
+    ref = frozen(__file__, f"scan-{dims}", lambda: _compiled(_jax_chain, *args)(*args))
     cost, dyn, old, alpha, mu0, sigma0 = _containers(p, tt, torch.as_tensor)
     ag = port.augment_cost_kl(cost, old, alpha)
     lgc, value, qvalue, div = port.gps_backward(ag, dyn, alpha)
@@ -111,6 +114,7 @@ def _scan(dims):
 
 
 @functools.lru_cache(maxsize=None)
+@reference(__file__)
 def _pallas(dims):
     """The interpret-mode Pallas kernels on the problem of ``dims``: K6's
     outputs, then K7's on K6's policy, compiled as one program."""

@@ -7,7 +7,8 @@ action_penalty=1e-5, 12 bisection steps; 2 episodes), with JAX's draws (each
 solve's initial kff and each step's process noise) handed in and the initial
 states given, held to JAX's ``make_gps_mpc_runner`` episode by episode;
 ``run_gps_mpc_batch``'s two modes on the draws of ``gps_mpc_draws``; the
-mesh, not ported yet, raises.  The JAX reference is compiled once."""
+mesh, not ported yet, raises.  The JAX reference is compiled once and
+frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 
@@ -21,6 +22,8 @@ import trajopt_tpu
 from trajopt_torch.parallel import gps as port
 from trajopt_torch.utils.convert import env_from_fields
 from trajopt_tpu.parallel import gps as jax_gps
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -56,14 +59,17 @@ def ref():
 
         return jax.vmap(one)(jax.random.split(key, STEPS))
 
-    kff, noise = jax.jit(jax.vmap(draws))(keys)
-    run = _compiled(jax_gps.make_gps_mpc_runner(jenv, HORIZON, STEPS, **GPS_KW), keys[0],
-                    jnp.asarray(x0s[0]))
-    episodes = [run(keys[i], jnp.asarray(x0s[i])) for i in range(EPISODES)]
+    def episodes():
+        kff, noise = jax.jit(jax.vmap(draws))(keys)
+        run = _compiled(jax_gps.make_gps_mpc_runner(jenv, HORIZON, STEPS, **GPS_KW), keys[0],
+                        jnp.asarray(x0s[0]))
+        eps = [run(keys[i], jnp.asarray(x0s[i])) for i in range(EPISODES)]
+        return kff, noise, [np.stack([np.asarray(e[k]) for e in eps]) for k in range(3)]
+
+    kff, noise, mpc = frozen(__file__, "episodes", episodes)
     return dict(
         env=env_from_fields("Pendulum-TO-v0", dataclasses.asdict(jenv)), x0s=x0s,
-        kff=np.array(kff), noise=np.array(noise),
-        mpc=[np.stack([np.asarray(e[k]) for e in episodes]) for k in range(3)],
+        kff=np.array(kff), noise=np.array(noise), mpc=list(mpc),
     )
 
 

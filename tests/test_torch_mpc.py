@@ -4,7 +4,8 @@ Cartpole swing-up (actions saturate at ±umax), T=40, N=8, 3 iterations: the
 port's ``make_ilqr_solver_batched`` on every engine pair — scan, and the kernel
 engines, whose wrappers run their plain versions on CPU tensors — against JAX's
 ``backward="scan", rollout="scan"``.  Also: a warm start handed across with
-``utils/convert``, the import isolation of the port, and its precision pin."""
+``utils/convert``, the import isolation of the port, and its precision pin.
+The JAX solves are frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 import os
@@ -28,6 +29,8 @@ from trajopt_torch.utils.convert import (
     ilqr_state_to_numpy,
 )
 from trajopt_tpu.parallel.mpc import make_ilqr_solver_batched as jax_solver
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -54,7 +57,8 @@ def problem():
     jsolve3 = jax_solver(jenv, T, nb_iter=NB_ITER, backward="scan", rollout="scan")
     # one program for both: one compile instead of two
     x0j = jnp.asarray(x0s)
-    (state3, trace3), (state2, _) = _compiled(lambda x: (jsolve3(x), jsolve2(x)), x0j)(x0j)
+    (state3, trace3), (state2, _) = frozen(__file__, "solves", lambda: _compiled(
+        lambda x: (jsolve3(x), jsolve2(x)), x0j)(x0j))
     as_np = lambda s: {k: np.asarray(v) for k, v in s._asdict().items()}  # noqa: E731
     return dict(
         env=env_from_fields("Cartpole-TO-v0", dataclasses.asdict(jenv)),

@@ -4,7 +4,8 @@
 (dt=0.05, uw=1e-5; horizon 10, 6 steps, 3 iterations, 3 episodes) with JAX's
 process noise handed in and the initial states given, both held to JAX's
 ``make_mpc_runner`` episode by episode; ``run_mpc_batch``'s two modes; the
-mesh, not ported yet, raises.  The JAX reference is compiled once."""
+mesh, not ported yet, raises.  The JAX reference is compiled once and
+frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 
@@ -18,6 +19,8 @@ import trajopt_tpu
 from trajopt_torch.parallel import mpc as port
 from trajopt_torch.utils.convert import env_from_fields
 from trajopt_tpu.parallel import mpc as jax_mpc
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -41,16 +44,19 @@ def ref():
     keys = jax.random.split(jax.random.PRNGKey(0), EPISODES)
     x0s = np.asarray(jenv.x0) + 0.1 * np.random.default_rng(0).standard_normal((EPISODES, 2))
     # the additive noise of JAX's env.step: multivariate_normal(k, 0, Σ) = chol(Σ) z
-    noise = jax.jit(jax.vmap(lambda k: jax.vmap(
-        lambda kk: jax.random.multivariate_normal(kk, jnp.zeros(2), jenv.sigma)
-    )(jax.random.split(k, STEPS))))(keys)
-    run = _compiled(jax_mpc.make_mpc_runner(jenv, HORIZON, STEPS, nb_iter=MPC_ITER), keys[0],
-                    jnp.asarray(x0s[0]))
-    episodes = [run(keys[i], jnp.asarray(x0s[i])) for i in range(EPISODES)]
+    def episodes():
+        noise = jax.jit(jax.vmap(lambda k: jax.vmap(
+            lambda kk: jax.random.multivariate_normal(kk, jnp.zeros(2), jenv.sigma)
+        )(jax.random.split(k, STEPS))))(keys)
+        run = _compiled(jax_mpc.make_mpc_runner(jenv, HORIZON, STEPS, nb_iter=MPC_ITER),
+                        keys[0], jnp.asarray(x0s[0]))
+        eps = [run(keys[i], jnp.asarray(x0s[i])) for i in range(EPISODES)]
+        return noise, [np.stack([np.asarray(e[k]) for e in eps]) for k in range(3)]
+
+    noise, mpc = frozen(__file__, "episodes", episodes)
     return dict(
         env=env_from_fields("Pendulum-TO-v0", dataclasses.asdict(jenv)), x0s=x0s,
-        noise=np.array(noise),
-        mpc=[np.stack([np.asarray(e[k]) for e in episodes]) for k in range(3)],
+        noise=np.array(noise), mpc=list(mpc),
     )
 
 

@@ -1,7 +1,8 @@
 """Parity of the port's Pendulum environments (trajopt_torch/envs/pendulum.py)
 with trajopt_tpu's, float64 on the CPU: dynamics, cost, linearization and
 quadratization (actions exactly at ±umax among the samples), the tile
-protocol, and the stochastic interface (noise, init, the noisy step)."""
+protocol, and the stochastic interface (noise, init, the noisy step).  The
+jitted JAX references are frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 
@@ -17,6 +18,8 @@ from trajopt_torch.core.diff import linearize_dynamics_delta, quadratize_cost_de
 from trajopt_torch.utils.convert import env_from_fields
 from trajopt_tpu.core import diff as jax_diff
 from trajopt_tpu.core import pallas_rollout as jax_tiles
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -49,11 +52,12 @@ def _samples(env, n=12, seed=0):
 def test_dynamics_and_cost_match(name, kw):
     jenv, tenv = _envs(name, kw)
     x, u, ul, w = _samples(jenv)
-    xn_j = jax.jit(jax.vmap(jenv.dynamics))(jnp.asarray(x), jnp.asarray(u))
+    xn_j, c_j = frozen(__file__, f"dynamics-cost-{name}-{kw}", lambda: (
+        jax.jit(jax.vmap(jenv.dynamics))(jnp.asarray(x), jnp.asarray(u)),
+        jax.jit(jax.vmap(jenv.cost))(jnp.asarray(x), jnp.asarray(u), jnp.asarray(ul),
+                                     jnp.asarray(w))))
     xn_t = tenv.dynamics(torch.as_tensor(x), torch.as_tensor(u))
     np.testing.assert_allclose(xn_t.numpy(), np.asarray(xn_j), **TOL)
-    c_j = jax.jit(jax.vmap(jenv.cost))(jnp.asarray(x), jnp.asarray(u), jnp.asarray(ul),
-                                       jnp.asarray(w))
     c_t = tenv.cost(torch.as_tensor(x), torch.as_tensor(u), torch.as_tensor(ul),
                     torch.as_tensor(w))
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), **TOL)
@@ -66,8 +70,11 @@ def test_linearization_and_quadratization_match(name, kw):
     jenv, tenv = _envs(name, kw)
     x, u, _, w = _samples(jenv, n=9, seed=1)
     xs, us = x.reshape(3, 3, 2), u[:6].reshape(3, 2, 1)       # 3 trajectories, T = 2
-    A_j, B_j = jax.jit(lambda a, b: jax_diff.linearize_dynamics_delta(jenv.dynamics, a, b))(
-        jnp.asarray(x), jnp.asarray(u))
+    (A_j, B_j), c_j = frozen(__file__, f"expansions-{name}-{kw}", lambda: (
+        jax.jit(lambda a, b: jax_diff.linearize_dynamics_delta(jenv.dynamics, a, b))(
+            jnp.asarray(x), jnp.asarray(u)),
+        jax.jit(jax.vmap(lambda a, b: jax_diff.quadratize_cost_delta(
+            jenv.cost, a, b, jnp.asarray(w[:3]))))(jnp.asarray(xs), jnp.asarray(us))))
     A_t, B_t = linearize_dynamics_delta(tenv.dynamics, torch.as_tensor(x), torch.as_tensor(u))
     np.testing.assert_allclose(A_t.numpy(), np.asarray(A_j), **TOL)
     np.testing.assert_allclose(B_t.numpy(), np.asarray(B_j), **TOL)
@@ -76,8 +83,6 @@ def test_linearization_and_quadratization_match(name, kw):
                                        torch.as_tensor([[9.999999]]))
     np.testing.assert_allclose(B_t[0].numpy(), 0.5 * B_in[0].numpy(), rtol=1e-4)
 
-    c_j = jax.jit(jax.vmap(lambda a, b: jax_diff.quadratize_cost_delta(
-        jenv.cost, a, b, jnp.asarray(w[:3]))))(jnp.asarray(xs), jnp.asarray(us))
     c_t = quadratize_cost_delta(tenv.cost, torch.as_tensor(xs), torch.as_tensor(us),
                                 torch.as_tensor(w[:3]))
     for k in ("Cxx", "cx", "Cuu", "cu", "Cxu"):
@@ -122,9 +127,10 @@ def test_stochastic_interface_matches():
 
     x, u, _, _ = _samples(jenv, n=4, seed=3)
     keys = jax.random.split(jax.random.PRNGKey(5), 4)
-    xn_j = jax.jit(jax.vmap(jenv.step))(keys, jnp.asarray(x), jnp.asarray(u))
     zero = jnp.zeros(2)
-    eps = jax.jit(jax.vmap(lambda k: jax.random.multivariate_normal(k, zero, jenv.sigma)))(keys)
+    xn_j, eps = frozen(__file__, "step", lambda: (
+        jax.jit(jax.vmap(jenv.step))(keys, jnp.asarray(x), jnp.asarray(u)),
+        jax.jit(jax.vmap(lambda k: jax.random.multivariate_normal(k, zero, jenv.sigma)))(keys)))
     xn_t = tenv.step(None, torch.as_tensor(x), torch.as_tensor(u), torch.tensor(np.asarray(eps)))
     np.testing.assert_allclose(xn_t.numpy(), np.asarray(xn_j), **TOL)
 

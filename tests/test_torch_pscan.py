@@ -6,7 +6,8 @@ against JAX's ``lax.associative_scan`` passes, and K5's plain version
 Tolerances are those of tests/test_pallas_pscan.py: rtol 1e-8 on K and kff,
 1e-7 on V, v and dV.  The interpret-mode Pallas references run under
 ``jax.disable_jit()``: compiled whole, their unrolled tile body costs tens of
-seconds of XLA compile per shape, op by op a few seconds."""
+seconds of XLA compile per shape, op by op a few seconds.  Every JAX
+reference is frozen (``tests/make_torch_refs.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ from trajopt_torch.core.types import LinearDynamics, QuadraticCost
 from trajopt_tpu.core import pallas_pscan as jax_pallas
 from trajopt_tpu.core import pscan_lqr as jax_pscan
 from trajopt_tpu.core import types as jax_types
+
+from make_torch_refs import reference
 
 torch.set_num_threads(1)
 
@@ -43,6 +46,25 @@ def _problem(T, dx, du, non_pd=False):
     return p, jc, tc
 
 
+@reference(__file__)
+def _ref(kind, T, dx, du, non_pd=False, lmbda=0.0):
+    """JAX's pass of ``kind`` on ``_problem(T, dx, du, non_pd)``: the scan
+    engines jitted, the Pallas kernels in interpret mode under
+    ``jax.disable_jit()``."""
+    p, jc, _ = _problem(T, dx, du, non_pd)
+    A, B = jnp.asarray(p["A"]), jnp.asarray(p["B"])
+    if kind == "pilqr":
+        return _jax_pilqr(jc, A, B)
+    if kind == "priccati":
+        return _jax_priccati(jc, jax_types.LinearDynamics(A, B, jnp.asarray(p["c"])))
+    if kind == "reg":
+        return _jax_reg(jc, A, B, lmbda)
+    with jax.disable_jit():
+        if kind == "pallas":
+            return jax_pallas.pallas_pilqr_backward(jc, A, B, interpret=True)
+        return jax_pallas.pallas_pilqr_backward_reg(jc, A, B, lmbda, interpret=True)
+
+
 def _assert_backward(pol, value, dV, ref_pol, ref_value, ref_dV):
     np.testing.assert_allclose(pol.K.numpy(), np.asarray(ref_pol.K), **TOL_GAINS)
     np.testing.assert_allclose(pol.kff.numpy(), np.asarray(ref_pol.kff), **TOL_GAINS)
@@ -53,15 +75,14 @@ def _assert_backward(pol, value, dV, ref_pol, ref_value, ref_dV):
 
 def test_pilqr_backward_matches_jax():
     p, jc, tc = _problem(61, 3, 2)
-    ref = _jax_pilqr(jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]))
+    ref = _ref("pilqr", 61, 3, 2)
     out = port.pilqr_backward(tc, torch.as_tensor(p["A"]), torch.as_tensor(p["B"]))
     _assert_backward(*out, *ref)
 
 
 def test_priccati_backward_matches_jax():
     p, jc, tc = _problem(130, 2, 1)
-    jdyn = jax_types.LinearDynamics(*(jnp.asarray(p[k]) for k in ("A", "B", "c")))
-    pol_j, val_j = _jax_priccati(jc, jdyn)
+    pol_j, val_j = _ref("priccati", 130, 2, 1)
     pol, val = port.priccati_backward(
         tc, LinearDynamics(*(torch.as_tensor(p[k]) for k in ("A", "B", "c")))
     )
@@ -77,7 +98,7 @@ def test_lanes_and_reg_match_jax(lmbda):
     engine is the lane-major pass itself."""
     p, jc, tc = _problem(130, 2, 1)
     A, B = torch.as_tensor(p["A"]), torch.as_tensor(p["B"])
-    pol_j, val_j, dV_j, div_j = _jax_reg(jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]), lmbda)
+    pol_j, val_j, dV_j, div_j = _ref("reg", 130, 2, 1, False, lmbda)
     pol, val, dV, div = port.pilqr_backward_reg(tc, A, B, lmbda)
     assert not bool(div) and not bool(div_j)
     _assert_backward(pol, val, dV, pol_j, val_j, dV_j)
@@ -87,10 +108,7 @@ def test_lanes_and_reg_match_jax(lmbda):
 
 def test_k5_plain_matches_pallas_interpret():
     p, jc, tc = _problem(130, 2, 1)
-    with jax.disable_jit():
-        ref = jax_pallas.pallas_pilqr_backward(
-            jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]), interpret=True
-        )
+    ref = _ref("pallas", 130, 2, 1)
     out = cuda_pscan.cuda_pilqr_backward(tc, torch.as_tensor(p["A"]), torch.as_tensor(p["B"]))
     _assert_backward(*out, *ref)
     assert cuda_pscan.cuda_pilqr_backward.launches == 0
@@ -106,10 +124,7 @@ def test_k5_plain_reg_matches_pallas_interpret(T, lmbda):
     inputs (``Cuu + 0·I`` is ``Cuu``).  T=19 holds a horizon whose T+1
     positions fill less than one warp of K5's block."""
     p, jc, tc = _problem(T, 3, 2)
-    with jax.disable_jit():
-        pol_j, val_j, dV_j, div_j = jax_pallas.pallas_pilqr_backward_reg(
-            jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]), lmbda, interpret=True
-        )
+    pol_j, val_j, dV_j, div_j = _ref("pallas_reg", T, 3, 2, False, lmbda)
     pol, val, dV, div = cuda_pscan.cuda_pilqr_backward_reg(
         tc, torch.as_tensor(p["A"]), torch.as_tensor(p["B"]), lmbda
     )
@@ -124,15 +139,12 @@ def test_non_pd_step_keeps_each_engines_divergence_semantics():
     outputs stay finite, unflagged, and equal to the Pallas kernel's."""
     p, jc, tc = _problem(130, 2, 1, non_pd=True)
     A, B = torch.as_tensor(p["A"]), torch.as_tensor(p["B"])
-    *_, div_j = _jax_reg(jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]), 0.0)
+    *_, div_j = _ref("reg", 130, 2, 1, True, 0.0)
     *_, div = port.pilqr_backward_reg(tc, A, B, 0.0)
     assert bool(div) and bool(div_j)
 
     p, jc, tc = _problem(33, 3, 2, non_pd=True)
-    with jax.disable_jit():
-        pol_j, val_j, dV_j, div_j = jax_pallas.pallas_pilqr_backward_reg(
-            jc, jnp.asarray(p["A"]), jnp.asarray(p["B"]), 0.0, interpret=True
-        )
+    pol_j, val_j, dV_j, div_j = _ref("pallas_reg", 33, 3, 2, True, 0.0)
     pol, val, dV, div = cuda_pscan.cuda_pilqr_backward_reg(
         tc, torch.as_tensor(p["A"]), torch.as_tensor(p["B"]), 0.0
     )

@@ -1,9 +1,12 @@
 """Parity of the port's rollouts with trajopt_tpu's, float64 on the CPU: the
 plain versions of K2 (all-α returns) and K3 (per-instance selected α) against
 the interpret-mode ``rollout_all_alphas_pallas``/``pallas_rollout_selected``,
-and the scan engine's ``rollout_tracking`` against JAX's."""
+and the scan engine's ``rollout_tracking`` against JAX's.  The JAX references
+(and the JAX rollouts that make the inputs) are frozen
+(``tests/make_torch_refs.py``)."""
 
 import dataclasses
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,8 @@ from trajopt_tpu.core.types import LinearPolicy as JaxPolicy
 from trajopt_tpu.solvers.common import make_weighting as jax_weighting
 from trajopt_tpu.solvers.common import rollout_tracking as jax_rollout_tracking
 
+from make_torch_refs import frozen, reference
+
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-10, atol=1e-12)
@@ -35,6 +40,11 @@ TOL = dict(rtol=1e-10, atol=1e-12)
 def _problem(jenv, N, T, seed, scale=0.3):
     """Random gains and a reference rolled out with the JAX env; large
     feedforwards so that some actions saturate."""
+    key = hashlib.sha256(repr((jenv, N, T, seed, scale)).encode()).hexdigest()[:16]
+    return frozen(__file__, f"problem-{key}", lambda: _problem_live(jenv, N, T, seed, scale))
+
+
+def _problem_live(jenv, N, T, seed, scale):
     rng = np.random.default_rng(seed)
     dx, du = jenv.dm_state, jenv.dm_act
     K = scale * rng.standard_normal((N, T, du, dx))
@@ -73,6 +83,34 @@ def test_k2_k3_plain_match_pallas_interpret(name, kw, activation):
     jenv, tenv = _envs(name, kw)
     N, T = 4, 8
     alphas = (1.0, 0.5, 0.1)
+    K, kff, xref, uref = _problem(jenv, N, T, seed=0)
+    ret_j, ok_j, s_j, a_j, r_j = _k2_k3_ref(name, kw, activation)
+    np.testing.assert_allclose(r_j.T, ret_j, **TOL)
+
+    n_pad = lane_pad(N)
+    streams = pack_rollout(*_t(K, kff, xref, uref), n_pad)
+    w = make_weighting(T, activation, device="cpu", dtype=torch.float64)
+    alphas_t = torch.tensor(alphas, dtype=torch.float64)
+    ret_l, ok_l = cuda_rollout_returns(tenv, *streams, w, alphas_t)
+    np.testing.assert_allclose(ret_l[:, :N].T.numpy(), ret_j, **TOL)
+    np.testing.assert_array_equal(ok_l[:, :N].T.numpy(), ok_j)
+    assert np.any(np.abs(a_j) == jenv.umax[0])
+    for i, a in enumerate(alphas):
+        al = pad_lanes(torch.full((N,), a, dtype=torch.float64), n_pad)
+        xs_l, us_l, xT_l, r_l = cuda_rollout_selected(tenv, *streams, w, al)
+        states, actions = unpack_selected(xs_l, us_l, xT_l, N)
+        np.testing.assert_allclose(states.numpy(), s_j[i], **TOL)
+        np.testing.assert_allclose(actions.numpy(), a_j[i], **TOL)
+        np.testing.assert_allclose(r_l[:N].numpy(), ret_j[:, i], **TOL)
+
+
+@reference(__file__)
+def _k2_k3_ref(name, kw, activation):
+    """K2's returns on every α and K3's rollout of each α (all pairs on their
+    own lanes), interpret-mode Pallas."""
+    jenv = _envs(name, kw)[0]
+    N, T = 4, 8
+    alphas = (1.0, 0.5, 0.1)
     nA = len(alphas)
     K, kff, xref, uref = _problem(jenv, N, T, seed=0)
     w_j = jax_weighting(T, activation)
@@ -92,23 +130,7 @@ def test_k2_k3_plain_match_pallas_interpret(name, kw, activation):
     s_j, a_j = (np.asarray(x).reshape(nA, N, *x.shape[1:]) for x in
                 jax_rollout.unpack_selected(s_jl, a_jl, xT_jl, nA * N))
     r_j = np.asarray(r_jl).reshape(-1)[: nA * N].reshape(nA, N)
-    np.testing.assert_allclose(r_j.T, ret_j, **TOL)
-
-    n_pad = lane_pad(N)
-    streams = pack_rollout(*_t(K, kff, xref, uref), n_pad)
-    w = make_weighting(T, activation, device="cpu", dtype=torch.float64)
-    alphas_t = torch.tensor(alphas, dtype=torch.float64)
-    ret_l, ok_l = cuda_rollout_returns(tenv, *streams, w, alphas_t)
-    np.testing.assert_allclose(ret_l[:, :N].T.numpy(), ret_j, **TOL)
-    np.testing.assert_array_equal(ok_l[:, :N].T.numpy(), ok_j)
-    assert np.any(np.abs(a_j) == jenv.umax[0])
-    for i, a in enumerate(alphas):
-        al = pad_lanes(torch.full((N,), a, dtype=torch.float64), n_pad)
-        xs_l, us_l, xT_l, r_l = cuda_rollout_selected(tenv, *streams, w, al)
-        states, actions = unpack_selected(xs_l, us_l, xT_l, N)
-        np.testing.assert_allclose(states.numpy(), s_j[i], **TOL)
-        np.testing.assert_allclose(actions.numpy(), a_j[i], **TOL)
-        np.testing.assert_allclose(r_l[:N].numpy(), ret_j[:, i], **TOL)
+    return ret_j, ok_j, s_j, a_j, r_j
 
 
 def test_k3_plain_selected_alpha_per_lane():
@@ -130,11 +152,11 @@ def test_k3_plain_selected_alpha_per_lane():
     def one(K1, kff1, xr, ur, a):
         return jax_rollout_tracking(jenv, JaxPolicy(K=K1, kff=kff1), a, xr[0], xr, ur, w_j)
 
-    s_j, a_j, c_j = jax.jit(jax.vmap(one))(
-        *(jnp.asarray(x) for x in (K, kff, xref, uref, alphas)))
+    s_j, a_j, c_j = frozen(__file__, "per-lane", lambda: jax.jit(jax.vmap(one))(
+        *(jnp.asarray(x) for x in (K, kff, xref, uref, alphas))))
     np.testing.assert_allclose(states.numpy(), np.asarray(s_j), **TOL)
     np.testing.assert_allclose(actions.numpy(), np.asarray(a_j), **TOL)
-    np.testing.assert_allclose(r_l[:N].numpy(), np.asarray(jnp.sum(c_j, axis=1)), rtol=1e-10)
+    np.testing.assert_allclose(r_l[:N].numpy(), np.sum(c_j, axis=1), rtol=1e-10)
 
 
 @pytest.mark.parametrize("name", ["Cartpole-TO-v0", "Cartpole-TO-v1"])
@@ -150,8 +172,9 @@ def test_scan_rollout_tracking_matches_jax(name):
     def one(K1, kff1, xr, ur, a):
         return jax_rollout_tracking(jenv, JaxPolicy(K=K1, kff=kff1), a, xr[0], xr, ur, w_j)
 
-    s_j, a_j, c_j = jax.jit(jax.vmap(one))(jnp.asarray(K), jnp.asarray(kff), jnp.asarray(xref),
-                                           jnp.asarray(uref), jnp.asarray(alphas))
+    s_j, a_j, c_j = frozen(__file__, f"tracking-{name}", lambda: jax.jit(jax.vmap(one))(
+        jnp.asarray(K), jnp.asarray(kff), jnp.asarray(xref), jnp.asarray(uref),
+        jnp.asarray(alphas)))
     Kt, kfft, xt, ut = _t(K, kff, xref, uref)
     s_t, a_t, c_t = rollout_tracking(
         tenv, LinearPolicy(K=Kt, kff=kfft), torch.as_tensor(alphas), xt[:, 0], xt, ut, w_t

@@ -7,7 +7,7 @@ since JAX's ``pallas-pscan`` has no CPU route inside the solver.  Also: the
 unported options raise, and ``utils/convert`` carries Pendulum and an
 unbatched state across.  The MPC drivers built on this solver are held to
 JAX's in test_torch_mpc_runner.py.  Each JAX reference is compiled once per
-module."""
+module, and frozen (``tests/make_torch_refs.py``)."""
 
 import dataclasses
 
@@ -25,6 +25,8 @@ from trajopt_torch.utils.convert import (
     ilqr_state_to_numpy,
 )
 from trajopt_tpu.parallel import mpc as jax_mpc
+
+from make_torch_refs import frozen
 
 torch.set_num_threads(1)
 
@@ -55,7 +57,8 @@ def ref():
                for eng in engines]
     # one program for both engines: one compile instead of two
     x0j = jnp.asarray(x0)
-    outs = _compiled(lambda x: [solve(x) for solve in solvers], x0j)(x0j)
+    outs = frozen(__file__, "solves",
+                  lambda: _compiled(lambda x: [solve(x) for solve in solvers], x0j)(x0j))
     solves = {eng: (_as_np(state), np.asarray(trace))
               for eng, (state, trace) in zip(engines, outs)}
 

@@ -9,7 +9,10 @@ dimensions run together.  The hot-path engines are the CUDA kernels
 * :func:`gaussian_forward` — exact Gaussian propagation under a
   linear-Gaussian controller;
 * :func:`augment_cost_kl`, :func:`policy_kl`, :func:`quad_expectation` — the
-  rest of GPS's dual chain.
+  rest of GPS's dual chain;
+* :func:`gaussian_kl`, :func:`gaussian_interp_kl`, :func:`gaussian_interp_w2`
+  — the per-step KL and the damping geodesics of robust GPS's adversary
+  fixed point.
 """
 
 from __future__ import annotations
@@ -296,3 +299,38 @@ def policy_kl(
 def quad_expectation(mu: Tensor, sigma: Tensor, V: Tensor, v: Tensor, v0: Tensor) -> Tensor:
     """E[xᵀVx + vᵀx + v0] under N(mu, sigma) (gps/src/util.cpp:123-134)."""
     return _dot(_mv(V.mT, mu), mu) + _dot(mu, v) + v0 + _trace(V @ sigma)
+
+
+def gaussian_kl(p: GaussianSequence, q: GaussianSequence) -> Tensor:
+    """Per-step KL(p‖q) between Gaussian sequences (rgps/src/util.cpp:125-152);
+    ``(..., T, d)`` means → ``(..., T)``."""
+    d = p.mu.shape[-1]
+    lam_q = inv_psd(q.sigma)
+    diff = q.mu - p.mu
+    return 0.5 * (_trace(lam_q @ p.sigma) + _dot(_mv(lam_q.mT, diff), diff)
+                  + logdet_psd(q.sigma) - logdet_psd(p.sigma) - d)
+
+
+def gaussian_interp_kl(q: GaussianSequence, p: GaussianSequence, a: float) -> GaussianSequence:
+    """Precision-weighted (KL-geodesic) interpolation (rgps/src/util.cpp:188-215):
+    Σ = (aΛ_p + (1−a)Λ_q)⁻¹, μ = Σ(aΛ_p μ_p + (1−a)Λ_q μ_q)."""
+    lam_q, lam_p = inv_psd(q.sigma), inv_psd(p.sigma)
+    sigma = inv_psd(a * lam_p + (1.0 - a) * lam_q)
+    mu = _mv(sigma, _mv(a * lam_p, p.mu) + _mv((1.0 - a) * lam_q, q.mu))
+    return GaussianSequence(mu=mu, sigma=sigma)
+
+
+def _sqrtm(M: Tensor) -> Tensor:
+    """Symmetric square root through the eigendecomposition, eigenvalues
+    clamped at 0 (Armadillo's ``sqrtmat`` on SPD inputs)."""
+    w, U = torch.linalg.eigh(symmetrize(M))
+    return (U * torch.sqrt(torch.clamp(w, min=0.0)).unsqueeze(-2)) @ U.mT
+
+
+def gaussian_interp_w2(q: GaussianSequence, p: GaussianSequence, a: float) -> GaussianSequence:
+    """Wasserstein-2 geodesic interpolation (rgps/src/util.cpp:155-185)."""
+    mu = (1.0 - a) * q.mu + a * p.mu
+    s_q = _sqrtm(q.sigma)
+    s_q_inv = inv_psd(s_q)
+    mid = (1.0 - a) * q.sigma + a * _sqrtm(s_q @ p.sigma @ s_q)
+    return GaussianSequence(mu=mu, sigma=s_q_inv @ mid @ mid @ s_q_inv)

@@ -106,6 +106,35 @@ class GaussianSequence(NamedTuple):
         return self.mu.shape[-2]
 
 
+class MatrixNormalParams(NamedTuple):
+    """Gaussian over θ = vec([A B c]) (column-major vec), stacked over the
+    horizon; ``p = dx (dx + du + 1)``."""
+
+    mu: Tensor     # (T, p)
+    sigma: Tensor  # (T, p, p)
+
+    @property
+    def horizon(self) -> int:
+        return self.mu.shape[-2]
+
+
+def matrices_from_vec(mu_t: Tensor, dx: int, du: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Unpack column-major vec([A B c]) ``(..., p)`` into ``A (..., dx, dx)``,
+    ``B (..., dx, du)``, ``c (..., dx)``: entry ``a·dx + i`` is row i of
+    column a, so each block is the transpose of a row-major reshape."""
+    lead = mu_t.shape[:-1]
+    A = mu_t[..., : dx * dx].reshape(*lead, dx, dx).mT
+    B = mu_t[..., dx * dx : dx * dx + dx * du].reshape(*lead, du, dx).mT
+    return A, B, mu_t[..., dx * dx + dx * du :]
+
+
+def vec_from_matrices(A: Tensor, B: Tensor, c: Tensor) -> Tensor:
+    """Column-major vec([A B c]) ``(..., p)``, the inverse of
+    :func:`matrices_from_vec`."""
+    ABc = torch.cat([A, B, c.unsqueeze(-1)], dim=-1)
+    return ABc.mT.reshape(*ABc.shape[:-2], -1)
+
+
 def symmetrize(M: Tensor) -> Tensor:
     """0.5 (M + Mᵀ) over the trailing two axes."""
     return 0.5 * (M + torch.swapaxes(M, -1, -2))

@@ -6,3 +6,4 @@ from .cartpole import Cartpole, CartpoleWithCartesianCost  # noqa: F401
 from .lightdark import LightDark  # noqa: F401
 from .lqr import LQRv0, LQRv1, LQRv2  # noqa: F401
 from .pendulum import Pendulum, PendulumWithCartesianCost  # noqa: F401
+from .robot import Robot  # noqa: F401

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "trajopt_torch"
 SOURCES = (
     "ilqr_backward.cu", "fused_backward.cu", "rollout.cu", "pscan_backward.cu", "gps.cu",
-    "belief.cu", "bsp.cu", "elqr.cu",
+    "belief.cu", "bsp.cu", "elqr.cu", "rgps.cu",
 )
 # -fmad=false keeps each product and sum rounded on its own, as the plain
 # PyTorch versions round them, so the kernels can be held to them tightly.

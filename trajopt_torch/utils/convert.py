@@ -6,7 +6,10 @@ A caller turns a JAX env into ``dataclasses.asdict(env)``, a JAX
 ``GPSState`` into a dict whose container fields (``ctl``, ``xdist``,
 ``dyn``, ``cost``) are dicts of numpy arrays keyed by their own fields, and
 a ``LinearPolicy`` or ``QuadraticValue`` (an eLQR controller or value
-function) into a dict of numpy arrays keyed by field.
+function) into a dict of numpy arrays keyed by field.  A JAX ``RGPSState``
+goes across as a ``GPSState`` does (its containers ``ctl``, ``xdist``,
+``udist``, ``cost``, ``nominal`` as dicts; its PRNG key, which serves only
+the ``mf`` variant, is left behind), a ``MatrixNormalParams`` as a dict.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..core.types import (
     LinearGaussianDynamics,
     LinearGaussianPolicy,
     LinearPolicy,
+    MatrixNormalParams,
     QuadraticCost,
     QuadraticValue,
 )
@@ -28,9 +32,12 @@ from ..envs.base import make
 from ..parallel.bsp import BSPState
 from ..parallel.gps import GPSState
 from ..parallel.mpc import ILQRState
+from ..parallel.rgps import RGPSState
 
 _GPS_PARTS = {"ctl": LinearGaussianPolicy, "xdist": GaussianSequence,
               "dyn": LinearGaussianDynamics, "cost": QuadraticCost}
+_RGPS_PARTS = {"ctl": LinearGaussianPolicy, "xdist": GaussianSequence,
+               "udist": GaussianSequence, "cost": QuadraticCost, "nominal": MatrixNormalParams}
 
 
 def _plain(v):
@@ -95,25 +102,59 @@ def gps_state_from_numpy(d: dict, *, device="cuda") -> GPSState:
     containers as dicts of their own fields) → the port's state on
     ``device``, dtypes and shapes kept: unbatched from ``make_mbgps_solver``,
     batch-leading from ``make_mbgps_solver_batched``."""
-    def conv(x):
-        return torch.as_tensor(np.array(x)).to(device)
-
-    fields = {}
-    for name in GPSState._fields:
-        part = _GPS_PARTS.get(name)
-        value = d[name]
-        fields[name] = part(*(conv(value[f]) for f in part._fields)) if part else conv(value)
-    return GPSState(**fields)
+    return _nested_state(GPSState, _GPS_PARTS, d, device)
 
 
 def gps_state_to_numpy(state: GPSState) -> dict:
     """The port's GPS state → nested dicts of numpy arrays, as
     :func:`gps_state_from_numpy` takes them."""
+    return _nested_to_numpy(state, _GPS_PARTS)
+
+
+def rgps_state_from_numpy(d: dict, *, device="cuda") -> RGPSState:
+    """A robust-GPS state given as numpy arrays (keys: the ``RGPSState``
+    fields, the containers as dicts of their own fields; other keys, such
+    as the JAX state's ``key``, are ignored) → the port's state on
+    ``device``, dtypes and shapes kept: unbatched from ``make_rgps_solver``,
+    batch-leading from ``make_rgps_solver_batched``."""
+    return _nested_state(RGPSState, _RGPS_PARTS, d, device)
+
+
+def rgps_state_to_numpy(state: RGPSState) -> dict:
+    """The port's robust-GPS state → nested dicts of numpy arrays, as
+    :func:`rgps_state_from_numpy` takes them."""
+    return _nested_to_numpy(state, _RGPS_PARTS)
+
+
+def matrix_normal_from_numpy(d: dict, *, device="cuda") -> MatrixNormalParams:
+    """A MatrixNormal given as numpy arrays (keys ``mu``, ``sigma``) → the
+    port's ``MatrixNormalParams`` on ``device``, dtypes and shapes kept."""
+    return _flat_state(MatrixNormalParams, d, device)
+
+
+def matrix_normal_to_numpy(param: MatrixNormalParams) -> dict:
+    """The port's MatrixNormal → a dict of numpy arrays keyed by field."""
+    return _flat_to_numpy(param)
+
+
+def _nested_state(cls, parts: dict, d: dict, device):
+    def conv(x):
+        return torch.as_tensor(np.array(x)).to(device)
+
+    fields = {}
+    for name in cls._fields:
+        part = parts.get(name)
+        value = d[name]
+        fields[name] = part(*(conv(value[f]) for f in part._fields)) if part else conv(value)
+    return cls(**fields)
+
+
+def _nested_to_numpy(state, parts: dict) -> dict:
     def conv(x):
         return x.detach().cpu().numpy()
 
     return {name: ({f: conv(x) for f, x in value._asdict().items()}
-                   if name in _GPS_PARTS else conv(value))
+                   if name in parts else conv(value))
             for name, value in state._asdict().items()}
 
 
