@@ -9,17 +9,21 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 2. build the CUDA kernels from trajopt_torch/csrc (nvcc, sm_90a, in parallel);
 3. hold each kernel K1-K4 against its plain PyTorch version on the same
    inputs (made with numpy from a fixed seed): float64 at a small shape with a
-   batch that is not a multiple of 32 and saturated actions, float32 at the
-   main path's shape (N=2048, T=1000), K1 on Cartpole v0 and v1;
+   batch that is not a multiple of 32 and saturated actions, and K1/K4 again
+   at T=45, N=50 (neither a whole number of their 16-step chunks nor of
+   their 16-instance groups), both reg values; float32 at the main path's
+   shape (N=2048, T=1000), K1 on Cartpole v0 and v1;
 4. the main path: make_ilqr_solver_batched on Cartpole-TO-v0, T=1000,
    N=2048, 10 iterations, backward="cuda-fused", rollout="cuda", float32, from
    the benchmark's x0; it must go through K1, K2 and K3, give finite returns
    no higher than the initial ones, and agree with the scan engines (plain
    PyTorch, no kernel) on the mean final return; then backward="cuda" (K4);
 5. timings with CUDA events after a warm-up: ms per batch-iteration and
-   instance-iterations/s of the main path; per kernel ms per launch, launches
-   per iteration, the plain version's ms and the least time the card could
-   take (bound) from this run's bytes and operations;
+   instance-iterations/s of the main path; per kernel ms per launch (K1/K4:
+   device time with launches queued back to back, and the time per call as
+   call_ms; K2/K3: around calls), launches per iteration, the plain version's
+   ms and the least time the card could take (bound) from this run's bytes
+   and operations;
 6. kernel K5 (the parallel-in-time backward) against its plain version:
    float64 at (T, dx, du) = (19, 3, 2), (130, 2, 1) and (2500, 4, 2) with
    λ ∈ {0, 0.6}; float32 on the SPD problem of tests/test_tpu.py at
@@ -129,6 +133,9 @@ F32_OPS_PER_S = 67e12
 
 T_MAIN, N_MAIN, NB_ITER = 1000, 2048, 10
 N_SMALL, T_SMALL = 50, 48
+# K1 and K4 stage 16 steps of 16 instances at a time: a horizon that is not a
+# whole number of chunks and a batch that is not a whole number of groups
+N_RAGGED, T_RAGGED = 50, 45
 
 # Operations per time step and rollout (or instance), counted from the CUDA
 # sources at Cartpole's dims (dx=4, du=1), one per add, multiply, divide,
@@ -336,15 +343,14 @@ def main_path_streams(env, x0):
     return (K, kff, xr, ur), w
 
 
-def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_inputs=None):
-    """Hold K1-K4 against their plain versions; returns the max abs error of
-    each kernel's main output and the inputs, for the timings.  The rollouts
-    run on ``rollout_inputs`` (streams, weighting) when given, else under the
-    gains of the plain backward on the backward's own trajectory."""
-    from trajopt_torch.core import cuda_fused, cuda_lqr, cuda_rollout
-    from trajopt_torch.solvers.common import DEFAULT_ALPHAS
+def check_backwards(env_v0, env_v1, N, T, dtype, tol, device, reg_modes):
+    """Hold K4 and K1 (Cartpole v0 and v1) against their plain versions for
+    each ``reg``: gains and dV within ``tol`` of the largest entry, flags
+    equal.  Returns the max abs error of each kernel's K on v0 and v0's
+    inputs."""
+    from trajopt_torch.core import cuda_fused, cuda_lqr
 
-    log(f"kernel checks: {dtype}, N={N}, T={T}")
+    log(f"backward checks: {dtype}, N={N}, T={T}")
     inp = kernel_inputs(env_v0, N, T, 0, dtype, device)
     errs = {}
     for reg in reg_modes:
@@ -369,7 +375,18 @@ def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_i
             errors(f"K1 {name} reg={reg} kff", kff, kffp, tol)
             errors(f"K1 {name} reg={reg} dV", dV, dVp, tol)
             same_flags(f"K1 {name} reg={reg} bad", bad, badp)
+    return errs, inp
 
+
+def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_inputs=None):
+    """Hold K1-K4 against their plain versions; returns the max abs error of
+    each kernel's main output and the inputs, for the timings.  The rollouts
+    run on ``rollout_inputs`` (streams, weighting) when given, else under the
+    gains of the plain backward on the backward's own trajectory."""
+    from trajopt_torch.core import cuda_lqr, cuda_rollout
+    from trajopt_torch.solvers.common import DEFAULT_ALPHAS
+
+    errs, inp = check_backwards(env_v0, env_v1, N, T, dtype, tol, device, reg_modes)
     if rollout_inputs is None:
         Kp, kffp, _, _ = cuda_lqr._ilqr_backward_plain(inp["packed"], inp["lam"], 1)
         streams, w = (Kp, kffp, inp["xr"], inp["ur"]), inp["w"]
@@ -522,9 +539,10 @@ def device_ms_back_to_back(fn, reps):
     """Device time per call of ``fn`` with its launches queued back to back:
     a sleep kernel holds the stream while the host enqueues ``reps`` calls, so
     the CUDA events bracket the device's work alone and not the host's time
-    between launches.  Used for K6/K7, whose wrappers launch nothing but the
-    kernel (the profiler recorded only 1-2 of 20 of their launches).  Returns
-    (ms per call, the host's enqueue ms, the sleep's ms)."""
+    between launches.  Used for K1/K4 and K6-K16, whose wrappers launch
+    nothing but the kernel (the profiler recorded only 1-2 of 20 of K6/K7's
+    launches).  Returns (ms per call, the host's enqueue ms, the sleep's
+    ms)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2162,6 +2180,7 @@ def main():
     x0 = torch.zeros(N_MAIN, env_v0.dm_state, device=dev)
     x0[:, 0] = 0.01 * torch.arange(N_MAIN, device=dev, dtype=torch.float32)
     check_kernels(env_v0, env_v1, N_SMALL, T_SMALL, torch.float64, 1e-9, dev, (1, 2))
+    check_backwards(env_v0, env_v1, N_RAGGED, T_RAGGED, torch.float64, 1e-9, dev, (1, 2))
     errs, inp = check_kernels(env_v0, env_v1, N_MAIN, T_MAIN, torch.float32, 2e-3, dev, (1,),
                               main_path_streams(env_v0, x0))
 
@@ -2275,7 +2294,11 @@ def main():
     rows = []
     for k in ("K1", "K2", "K3", "K4"):
         kernel, plain = calls[k]
-        ms = time_cuda(kernel, 10)
+        # K1/K4: the kernel's device time with launches queued back to back
+        # (about 0.5 ms each, so a call's host work would show), and the time
+        # per call beside it; K2/K3: CUDA events around calls, as before
+        call_ms = time_cuda(kernel, 10)
+        ms = device_ms_back_to_back(kernel, 10)[0] if k in ("K1", "K4") else call_ms
         plain_ms = time_cuda(plain, 1)
         bytes_ms = 1e3 * moved[k] / HBM_BYTES_PER_S
         ops_ms = 1e3 * OPS_PER_STEP[k] * steps[k] / F32_OPS_PER_S
@@ -2283,8 +2306,8 @@ def main():
         name, source, replaces = meta[k]
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": count, "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "launches": count, "max_abs_err": errs[k], "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             # no single PyTorch call computes a batched Riccati recursion or a
             # closed-loop rollout

@@ -126,3 +126,19 @@ def test_k4_wrapper_rejects_bad_reg():
     packed = pack_lanes(_torch_cost(cost), torch.as_tensor(A), torch.as_tensor(B), 32)
     with pytest.raises(ValueError, match="reg"):
         cuda_ilqr_backward_packed(packed, torch.ones(32, dtype=torch.float64), reg=3)
+
+
+@pytest.mark.parametrize("Np,refusal", [(16, "multiple of 32"), (48, "multiple of 32"),
+                                        (1000, "multiple of 32"), (64, "CUDA device")])
+def test_k4_wrapper_takes_whole_lane_groups(Np, refusal):
+    """The staged kernel takes whole groups of instances: a device batch whose
+    lane count is not lane_pad's multiple of 32 is refused before any launch;
+    a padded one passes on to the device checks (here: meta tensors)."""
+    T = 3
+    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    packed = dict(cxx=z(T, 16, Np), cx=z(T, 4, Np), cuu=z(T, 1, Np), cu=z(T, 1, Np),
+                  cxu=z(T, 4, Np), A=z(T, 16, Np), B=z(T, 4, Np), vT=z(16, Np), vvT=z(4, Np))
+    launches = cuda_ilqr_backward_packed.launches
+    with pytest.raises(ValueError, match=refusal):
+        cuda_ilqr_backward_packed(packed, z(Np), 1)
+    assert cuda_ilqr_backward_packed.launches == launches

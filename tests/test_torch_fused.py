@@ -121,3 +121,18 @@ def test_fused_wrapper_rejects_bad_input():
     lam = torch.ones(32, dtype=torch.float64)
     with pytest.raises(ValueError, match="reg"):
         cuda_ilqr_backward_fused(tenv, x, u, u, x[0], w, lam, reg=3)
+
+
+@pytest.mark.parametrize("Np,refusal", [(16, "multiple of 32"), (48, "multiple of 32"),
+                                        (1000, "multiple of 32"), (64, "CUDA device")])
+def test_fused_wrapper_takes_whole_lane_groups(Np, refusal):
+    """As K4's wrapper: a device batch whose lane count is not a multiple of 32
+    is refused before any launch; a padded one reaches the device checks."""
+    tenv = env_from_fields("Cartpole-TO-v0", {})
+    T = 3
+    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    launches = cuda_ilqr_backward_fused.launches
+    with pytest.raises(ValueError, match=refusal):
+        cuda_ilqr_backward_fused(tenv, z(T, 4, Np), z(T, 1, Np), z(T, 1, Np), z(4, Np),
+                                 z(T + 1), z(Np), 1)
+    assert cuda_ilqr_backward_fused.launches == launches

@@ -14,6 +14,10 @@ instance and step,
   feature Jacobian;
 * the regularized backward step shared with K4 (``csrc/bwd_step.cuh``).
 
+The first two run on producer warps, a chunk of steps ahead, into shared
+memory; one consumer warp walks the backward recursion over them (the staged
+backward of ``csrc/bwd_step.cuh``), 16 instances to a block.
+
 The plain version expands the same trajectory with ``core/diff`` (the
 ``torch.func`` route of the scan engine) and runs K4's plain backward on it.
 """
@@ -26,7 +30,7 @@ import torch
 from torch import Tensor
 
 from ..kernels import _build
-from .cuda_lqr import _ilqr_backward_plain, pack_lanes
+from .cuda_lqr import _ilqr_backward_plain, check_lanes, pack_lanes
 from .cuda_rollout import env_kernel_args
 from .diff import _quadratize_delta, linearize_dynamics_delta
 
@@ -55,8 +59,9 @@ def cuda_ilqr_backward_fused(
     """Fused backward pass on structure-of-arrays trajectory streams (K1).
 
     ``xref_l (T, dx, Np)``, ``uref_l``/``ulast_l (T, du, Np)``, ``xT_l (dx,
-    Np)``, ``weighting (T+1,)``, ``lam_l (Np,)``.  Returns ``(K (T, du·dx, Np),
-    kff (T, du, Np), dV (2, Np), bad (Np,) bool)``, the contract of K4."""
+    Np)``, ``weighting (T+1,)``, ``lam_l (Np,)``; on CUDA tensors ``Np`` is a
+    multiple of 32.  Returns ``(K (T, du·dx, Np), kff (T, du, Np), dV (2, Np),
+    bad (Np,) bool)``, the contract of K4."""
     if reg not in (1, 2):
         raise ValueError(f"reg must be 1 or 2, got {reg}")
     if not getattr(env, "supports_tile_quadratization", False):
@@ -69,6 +74,7 @@ def cuda_ilqr_backward_fused(
                                     lam_l, reg)
     T, dx, Np = xref_l.shape
     du = uref_l.shape[1]
+    check_lanes("K1 fused_backward", Np)
     kind, params = env_kernel_args(env, dx, du)
     w = weighting[: T + 1].contiguous()
     ins = [xref_l, uref_l, ulast_l, xT_l, w, lam_l]

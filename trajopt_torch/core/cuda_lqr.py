@@ -5,7 +5,10 @@ operands are structure-of-arrays streams with time leading, ``(T, entries,
 Np)``: entry ``i·cols + j`` of each per-step block for all ``Np`` instances is
 one contiguous row, so neighbouring threads (instances) read neighbouring
 addresses.  ``Np`` is the batch padded to a multiple of 32; padding lanes
-replicate instance 0 and their outputs are discarded.
+replicate instance 0 and their outputs are discarded.  The kernel copies the
+streams a chunk of steps ahead into shared memory, where one consumer warp
+per 16 instances walks the recursion (the staged backward of
+``csrc/bwd_step.cuh``).
 
 ``cuda_ilqr_backward_packed`` launches ``csrc/ilqr_backward.cu`` on CUDA
 tensors and runs the plain PyTorch version below on CPU tensors.  The plain
@@ -50,6 +53,14 @@ def from_soa(x: Tensor, N: int, dims: tuple[int, ...]) -> Tensor:
     """``(T, prod(dims), Np)`` → ``(N, T, *dims)``."""
     T = x.shape[0]
     return x[..., :N].permute(2, 0, 1).reshape(N, T, *dims)
+
+
+def check_lanes(what: str, Np: int) -> None:
+    """The staged kernels (K1, K4) take whole groups of instances: ``Np`` must
+    be a multiple of 32, as :func:`lane_pad` makes it."""
+    if Np % LANE_MULTIPLE:
+        raise ValueError(f"{what}: {Np} lanes; the kernel takes a multiple of "
+                         f"{LANE_MULTIPLE} (pad the batch with lane_pad)")
 
 
 def pad_lanes(x: Tensor, n_pad: int) -> Tensor:
@@ -194,8 +205,8 @@ def cuda_ilqr_backward_packed(packed: dict, lam: Tensor, reg: int = 1):
 
     ``packed`` holds the streams of :func:`pack_lanes`; ``lam (Np,)`` is the
     per-instance λ.  Returns ``(K (T, du·dx, Np), kff (T, du, Np), dV (2, Np),
-    bad (Np,) bool)``.  CUDA tensors launch the kernel; CPU tensors run the
-    plain version."""
+    bad (Np,) bool)``.  CUDA tensors launch the kernel (``Np`` a multiple of
+    32, operands 16-byte aligned); CPU tensors run the plain version."""
     if reg not in (1, 2):
         raise ValueError(f"reg must be 1 or 2, got {reg}")
     names = ("cxx", "cx", "cuu", "cu", "cxu", "A", "B", "vT", "vvT")
@@ -204,8 +215,12 @@ def cuda_ilqr_backward_packed(packed: dict, lam: Tensor, reg: int = 1):
     T, _, Np = packed["A"].shape
     dx = packed["vvT"].shape[0]
     du = packed["cu"].shape[1]
+    check_lanes("K4 ilqr_backward", Np)
     ins = [packed[k] for k in names] + [lam]
     code = _build.cuda_operands("K4 ilqr_backward", *ins)
+    if any(t.data_ptr() % 16 for t in ins):
+        # the kernel stages the streams with 16-byte cp.async copies
+        raise ValueError("K4 ilqr_backward: operands must be 16-byte aligned")
     dev, dt = lam.device, lam.dtype
     K = torch.empty(T, du * dx, Np, dtype=dt, device=dev)
     kff = torch.empty(T, du, Np, dtype=dt, device=dev)

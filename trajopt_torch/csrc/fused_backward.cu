@@ -3,24 +3,29 @@
 // Replaces trajopt_tpu/core/pallas_fused.py::_fused_kernel (wrapper
 // pallas_ilqr_backward_fused).
 //
-// What bounds it on the H100: the dependent chain, not bandwidth.  It reads
-// only the trajectory streams (xref, uref, u_last: 6 values per step at
-// Cartpole's dims) and writes the gains (5 per step), about 11 values per step
-// and instance, so the bytes alone would take microseconds.  But each
-// instance is T dependent steps, and each step evaluates the RK4 step on dual
-// numbers (dx + du tangents), the feature Jacobian, and the backward step of
-// bwd_step.cuh; with one thread per instance a batch of 2048 is 64 warps on
-// 132 SMs, so the time is T times one step's latency.
+// What bounds it on the H100: the dependent chain of the backward step, as
+// issued by one warp, not bandwidth.  It reads only the trajectory streams
+// (xref, uref, u_last: 6 values per step at Cartpole's dims) and writes the
+// gains (5 per step), so the bytes alone would take microseconds.  Each step
+// also evaluates the RK4 step on dual numbers (dx + du tangents) and the
+// feature Jacobian, three quarters of its operations, but those depend only
+// on the trajectory, not on the value carry.  The first version ran all of it
+// in one thread per instance (64 one-warp blocks for a batch of 2048), the
+// linearization and an HBM round trip inside the chain of every step.
 //
-// Design: one thread per instance walks t = T−1 … 0 with the value carry in
-// registers.  A and B are the tangents of one dual evaluation of the env's
-// dynamics (envs.cuh) — action clip, RK4, state clip — with JAX's tie rule at
-// the clip bounds, so saturated actions give the same halved B as the
-// reference.  The cost blocks are closed form for the base feature-goal cost:
-// Cxx = 2w·JᵀGJ, cx = 2w·JᵀG(z₀ − g), Cuu = 2·diag(uw), cu = 2·uw·u (slew:
-// u − u_last), Cxu = 0, with J from a dual evaluation of the features.  The
-// env's fields arrive as a launch argument (EnvParams).  Streams are
-// structure of arrays (T, entries, Np), coalesced across instances.
+// Design: the staged backward of bwd_step.cuh.  A block takes 16 instances;
+// nine producer warps compute a chunk of 16 steps × 16 instances of
+// operands, one (t, n) per thread — A and B as the tangents of one dual
+// evaluation of the env's dynamics (envs.cuh: action clip, RK4, state clip,
+// with JAX's tie rule at the clip bounds, so saturated actions give the same
+// halved B as the reference), and the closed-form cost blocks of the base
+// feature-goal cost: Cxx = 2w·JᵀGJ, cx = 2w·JᵀG(z₀ − g), Cuu = 2·diag(uw),
+// cu = 2·uw·u (slew: u − u_last), Cxu = 0, with J from a dual evaluation of
+// the features — into a ring in shared memory, while the consumer warp walks
+// the value recursion over the stage before.  The linearization is T·N-way
+// parallel work beside the chain and never touches HBM.  The env's fields
+// arrive as a launch argument (EnvParams).  Streams are structure of arrays
+// (T, entries, Np), coalesced across instances.
 #include <cuda_runtime.h>
 
 #include "bwd_step.cuh"
@@ -77,76 +82,91 @@ __device__ __forceinline__ void goal_quad(const EnvParams& p, const S (&x)[Env::
   }
 }
 
+// The producer of the staged backward: the linearization and the cost blocks
+// of each (t, n) of a chunk, one per producer thread.
 template <typename S, class Env>
-__global__ void __launch_bounds__(32) fused_backward_kernel(
-    EnvParams p, const S* __restrict__ xref, const S* __restrict__ uref,
-    const S* __restrict__ ulast, const S* __restrict__ xT, const S* __restrict__ w,
-    const S* __restrict__ lam, S* __restrict__ K_out, S* __restrict__ kff_out,
-    S* __restrict__ dV, unsigned char* __restrict__ bad_out, int T, int Np, int reg) {
-  constexpr int DX = Env::DX, DU = Env::DU;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= Np) return;
-  const size_t np = Np;
+struct LinearizeProducer {
+  static constexpr int DX = Env::DX, DU = Env::DU;
+  // In f32 nine warps (three on each sub-partition beside the consumer's)
+  // fill a chunk of 16 × 16 (t, n) in one round: the dual-number steps have
+  // little ILP, and it takes that many to stay ahead of the chain.  An f64
+  // thread needs over 200 registers, and twelve warps of those exceed an
+  // SM's 64K: three.
+  static constexpr int kWarps = sizeof(S) == 4 ? 9 : 3;
+  EnvParams p;
+  const S *xref, *uref, *ulast, *xT, *w;
+  size_t np;
+  int T;
 
-  S V[DX][DX], v[DX];
-  {
+  __device__ __forceinline__ void terminal(int n, S (&V)[DX][DX], S (&v)[DX]) const {
     S x[DX];
 #pragma unroll
     for (int i = 0; i < DX; ++i) x[i] = xT[i * np + n];
     goal_quad<Env>(p, x, w[T], V, v);
   }
-  S dv0 = S(0), dv1 = S(0);
-  bool bad = false;
-  const S l = lam[n];
 
-  for (int t = T - 1; t >= 0; --t) {
-    S x[DX], u[DU], ul[DU];
+  __device__ __forceinline__ void fill(S* stage, int t_hi, int steps, int n0, int tid) const {
+    using L = StepSlot<DX, DU>;
+    for (int q = tid; q < steps * kGroup; q += 32 * kWarps) {
+      const int s = q / kGroup, g = q % kGroup, n = n0 + g;
+      const size_t t = t_hi - s;
+      S x[DX], u[DU], ul[DU];
 #pragma unroll
-    for (int i = 0; i < DX; ++i) x[i] = xref[((size_t)t * DX + i) * np + n];
+      for (int i = 0; i < DX; ++i) x[i] = xref[(t * DX + i) * np + n];
 #pragma unroll
-    for (int j = 0; j < DU; ++j) {
-      u[j] = uref[((size_t)t * DU + j) * np + n];
-      ul[j] = ulast[((size_t)t * DU + j) * np + n];
-    }
+      for (int j = 0; j < DU; ++j) {
+        u[j] = uref[(t * DU + j) * np + n];
+        ul[j] = ulast[(t * DU + j) * np + n];
+      }
 
-    S A[DX][DX], B[DX][DU], Cxx[DX][DX], cx[DX], Cuu[DU][DU], cu[DU], Cxu[DX][DU];
-    linearize<Env>(p, x, u, A, B);
-    goal_quad<Env>(p, x, w[t], Cxx, cx);
-#pragma unroll
-    for (int i = 0; i < DU; ++i) {
-#pragma unroll
-      for (int j = 0; j < DU; ++j) Cuu[i][j] = i == j ? S(2.0 * p.uw[i]) : S(0);
-      cu[i] = S(2.0 * p.uw[i]) * (p.slew_rate ? u[i] - ul[i] : u[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < DX; ++i)
-#pragma unroll
-      for (int j = 0; j < DU; ++j) Cxu[i][j] = S(0);
+      S A[DX][DX], B[DX][DU], Cxx[DX][DX], cx[DX];
+      linearize<Env>(p, x, u, A, B);
+      goal_quad<Env>(p, x, w[t], Cxx, cx);
 
-    S K[DU][DX], kff[DU];
-    bwd_step<S, DX, DU>(Cxx, cx, Cuu, cu, Cxu, A, B, V, v, dv0, dv1, bad, l, reg, K, kff);
-
+      S* op = stage + s * L::E * kGroup + g;
 #pragma unroll
-    for (int i = 0; i < DU; ++i) {
+      for (int i = 0; i < DX; ++i) {
 #pragma unroll
-      for (int j = 0; j < DX; ++j) K_out[((size_t)t * DU * DX + i * DX + j) * np + n] = K[i][j];
-      kff_out[((size_t)t * DU + i) * np + n] = kff[i];
+        for (int j = 0; j < DX; ++j) {
+          op[(L::A + i * DX + j) * kGroup] = A[i][j];
+          op[(L::CXX + i * DX + j) * kGroup] = Cxx[i][j];
+        }
+#pragma unroll
+        for (int j = 0; j < DU; ++j) {
+          op[(L::B + i * DU + j) * kGroup] = B[i][j];
+          op[(L::CXU + i * DU + j) * kGroup] = S(0);
+        }
+        op[(L::CX + i) * kGroup] = cx[i];
+      }
+#pragma unroll
+      for (int i = 0; i < DU; ++i) {
+#pragma unroll
+        for (int j = 0; j < DU; ++j)
+          op[(L::CUU + i * DU + j) * kGroup] = i == j ? S(2.0 * p.uw[i]) : S(0);
+        op[(L::CU + i) * kGroup] = S(2.0 * p.uw[i]) * (p.slew_rate ? u[i] - ul[i] : u[i]);
+      }
     }
   }
-  dV[n] = dv0;
-  dV[np + n] = dv1;
-  bad_out[n] = bad ? 1 : 0;
+};
+
+template <typename S, class Env>
+__global__ void __launch_bounds__(Staged<LinearizeProducer<S, Env>>::kThreads, 1)
+fused_backward_kernel(
+    LinearizeProducer<S, Env> prod, const S* __restrict__ lam, S* __restrict__ K_out,
+    S* __restrict__ kff_out, S* __restrict__ dV, unsigned char* __restrict__ bad_out, int T,
+    int Np, int reg) {
+  staged_backward<S, Env::DX, Env::DU>(prod, lam, K_out, kff_out, dV, bad_out, T, Np, reg);
 }
 
 template <typename S, class Env>
 static int launch(const EnvParams& p, const void* const* in, void* const* out, int T, int Np,
                   int reg, cudaStream_t stream) {
-  const int threads = 32;
-  const int blocks = (Np + threads - 1) / threads;
-  fused_backward_kernel<S, Env><<<blocks, threads, 0, stream>>>(
+  const LinearizeProducer<S, Env> prod{
       p, (const S*)in[0], (const S*)in[1], (const S*)in[2], (const S*)in[3], (const S*)in[4],
-      (const S*)in[5], (S*)out[0], (S*)out[1], (S*)out[2], (unsigned char*)out[3], T, Np, reg);
-  return (int)cudaGetLastError();
+      (size_t)Np, T};
+  return launch_staged<S, Env::DX, Env::DU, LinearizeProducer<S, Env>>(
+      fused_backward_kernel<S, Env>, Np, stream, prod, (const S*)in[5], (S*)out[0],
+      (S*)out[1], (S*)out[2], (unsigned char*)out[3], T, Np, reg);
 }
 
 template <typename S>
@@ -159,7 +179,7 @@ static int dispatch_env(int kind, const EnvParams& p, const void* const* in, voi
 
 // C entry point.  dtype: 0 float32, 1 float64; kind: 0 Cartpole, 1 Cartpole
 // with the Cartesian cost.  Returns the CUDA error of the launch, or -1 for an
-// unsupported (dtype, kind).
+// unsupported (dtype, kind) or an Np that is not a multiple of the group (16).
 extern "C" int trajopt_fused_backward(
     int dtype, int kind, const EnvParams* params, const void* xref, const void* uref,
     const void* ulast, const void* xT, const void* w, const void* lam, void* K, void* kff,

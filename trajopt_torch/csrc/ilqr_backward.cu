@@ -4,98 +4,100 @@
 // Replaces trajopt_tpu/core/pallas_lqr.py::_ilqr_kernel (wrappers
 // pallas_ilqr_backward / pallas_ilqr_backward_packed).
 //
-// What bounds it on the H100: not bandwidth.  Each instance is a chain of T
-// dependent steps (one Cholesky, two small solves and a dozen tiny products
-// per step), and with one thread per instance a batch of 2048 fills only 64
-// warps on 132 SMs, so the time is T times one step's dependent latency.
-// The bytes (the seven streams, ≈ 44 floats per step at Cartpole's 4×1 dims,
-// read once; the gains written once) are the floor only at far larger batches.
+// What bounds it on the H100: the dependent chain of one instance, T steps
+// of one Cholesky, two small solves and a dozen tiny products, as issued by
+// one warp.  The bytes (the seven streams, 46 values per step at Cartpole's
+// 4×1 dims, read once; the gains written once) are the floor only at far
+// larger batches.  The first version ran one thread per instance in one-warp
+// blocks and loaded each step's 46 operands from device memory inside the
+// chain: 64 warps on 132 SMs, each waiting out a round trip to HBM per step.
 //
-// Design: one thread per instance runs the whole time loop; the value carry
-// (V, v, dV, flag) stays in registers across it, replacing the sequential
-// grid axis and VMEM scratch of the TPU kernel.  Streams are structure of
-// arrays (T, entries, Np) with instances contiguous, so a warp's loads of one
-// entry are one coalesced 128-byte line.  Blocks are one warp each, spreading
-// the few warps over as many SMs as possible.  All small-matrix algebra is
-// unrolled at compile time from bwd_step.cuh, templated on <S, DX, DU>.
+// Design: the staged backward of bwd_step.cuh.  A block takes 16 instances;
+// its consumer warp walks the value recursion (V, v, dV, flag in registers)
+// reading each step's operands from shared memory, while three producer
+// warps copy the next chunk of the seven streams into the other stage of the
+// ring with cp.async, 16 bytes a thread, so the chain never waits on device
+// memory.  Streams are structure of arrays (T, entries, Np) with instances
+// contiguous: a group's row of one entry is 64 bytes (f32) in one line.  All
+// small-matrix algebra is unrolled at compile time from bwd_step.cuh,
+// templated on <S, DX, DU>.
 #include <cuda_runtime.h>
 
 #include "bwd_step.cuh"
 
+// A 16-byte copy from device memory to shared memory that bypasses L1, and
+// the wait for all of this thread's copies to land.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+}
+
+// The producer of the staged backward: copies the streams' rows of a chunk.
 template <typename S, int DX, int DU>
-__global__ void __launch_bounds__(32) ilqr_backward_kernel(
-    const S* __restrict__ cxx, const S* __restrict__ cx, const S* __restrict__ cuu,
-    const S* __restrict__ cu, const S* __restrict__ cxu, const S* __restrict__ A_s,
-    const S* __restrict__ B_s, const S* __restrict__ vT, const S* __restrict__ vvT,
-    const S* __restrict__ lam, S* __restrict__ K_out, S* __restrict__ kff_out,
-    S* __restrict__ dV, unsigned char* __restrict__ bad_out, int T, int Np, int reg) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= Np) return;
-  const size_t np = Np;
+struct StreamProducer {
+  static constexpr int kWarps = 3;
+  const S *cxx, *cx, *cuu, *cu, *cxu, *A, *B, *vT, *vvT;
+  size_t np;
 
-  S V[DX][DX], v[DX];
-#pragma unroll
-  for (int i = 0; i < DX; ++i) {
-#pragma unroll
-    for (int j = 0; j < DX; ++j) V[i][j] = vT[(i * DX + j) * np + n];
-    v[i] = vvT[i * np + n];
-  }
-  S dv0 = S(0), dv1 = S(0);
-  bool bad = false;
-  const S l = lam[n];
-
-  for (int t = T - 1; t >= 0; --t) {
-    S Cxx[DX][DX], cx_t[DX], Cuu[DU][DU], cu_t[DU], Cxu[DX][DU], A[DX][DX], B[DX][DU];
+  __device__ __forceinline__ void terminal(int n, S (&V)[DX][DX], S (&v)[DX]) const {
 #pragma unroll
     for (int i = 0; i < DX; ++i) {
 #pragma unroll
-      for (int j = 0; j < DX; ++j) {
-        Cxx[i][j] = cxx[((size_t)t * DX * DX + i * DX + j) * np + n];
-        A[i][j] = A_s[((size_t)t * DX * DX + i * DX + j) * np + n];
-      }
-#pragma unroll
-      for (int j = 0; j < DU; ++j) {
-        Cxu[i][j] = cxu[((size_t)t * DX * DU + i * DU + j) * np + n];
-        B[i][j] = B_s[((size_t)t * DX * DU + i * DU + j) * np + n];
-      }
-      cx_t[i] = cx[((size_t)t * DX + i) * np + n];
-    }
-#pragma unroll
-    for (int i = 0; i < DU; ++i) {
-#pragma unroll
-      for (int j = 0; j < DU; ++j) Cuu[i][j] = cuu[((size_t)t * DU * DU + i * DU + j) * np + n];
-      cu_t[i] = cu[((size_t)t * DU + i) * np + n];
-    }
-
-    S K[DU][DX], kff[DU];
-    bwd_step<S, DX, DU>(Cxx, cx_t, Cuu, cu_t, Cxu, A, B, V, v, dv0, dv1, bad, l, reg, K, kff);
-
-#pragma unroll
-    for (int i = 0; i < DU; ++i) {
-#pragma unroll
-      for (int j = 0; j < DX; ++j) K_out[((size_t)t * DU * DX + i * DX + j) * np + n] = K[i][j];
-      kff_out[((size_t)t * DU + i) * np + n] = kff[i];
+      for (int j = 0; j < DX; ++j) V[i][j] = vT[(i * DX + j) * np + n];
+      v[i] = vvT[i * np + n];
     }
   }
-  dV[n] = dv0;
-  dV[np + n] = dv1;
-  bad_out[n] = bad ? 1 : 0;
+
+  // The row (all Np instances) of slot entry e at step t.
+  __device__ __forceinline__ const S* row(int e, size_t t) const {
+    using L = StepSlot<DX, DU>;
+    if (e < L::B) return A + (t * DX * DX + e) * np;
+    if (e < L::CXX) return B + (t * DX * DU + e - L::B) * np;
+    if (e < L::CX) return cxx + (t * DX * DX + e - L::CXX) * np;
+    if (e < L::CUU) return cx + (t * DX + e - L::CX) * np;
+    if (e < L::CU) return cuu + (t * DU * DU + e - L::CUU) * np;
+    if (e < L::CXU) return cu + (t * DU + e - L::CU) * np;
+    return cxu + (t * DX * DU + e - L::CXU) * np;
+  }
+
+  __device__ __forceinline__ void fill(S* stage, int t_hi, int steps, int n0, int tid) const {
+    using L = StepSlot<DX, DU>;
+    constexpr int VEC = 16 / sizeof(S), PIECES = kGroup / VEC;   // per row of a group
+    const int total = steps * L::E * PIECES;
+    for (int q = tid; q < total; q += 32 * kWarps) {
+      const int c = q % PIECES, se = q / PIECES, e = se % L::E, s = se / L::E;
+      cp_async16(stage + (s * L::E + e) * kGroup + c * VEC, row(e, t_hi - s) + n0 + c * VEC);
+    }
+    cp_async_wait_all();
+  }
+};
+
+template <typename S, int DX, int DU>
+__global__ void __launch_bounds__(Staged<StreamProducer<S, DX, DU>>::kThreads, 1)
+ilqr_backward_kernel(
+    StreamProducer<S, DX, DU> prod, const S* __restrict__ lam, S* __restrict__ K_out,
+    S* __restrict__ kff_out, S* __restrict__ dV, unsigned char* __restrict__ bad_out, int T,
+    int Np, int reg) {
+  staged_backward<S, DX, DU>(prod, lam, K_out, kff_out, dV, bad_out, T, Np, reg);
 }
 
 template <typename S, int DX, int DU>
 static int launch(const void* const* in, void* const* out, int T, int Np, int reg,
                   cudaStream_t stream) {
-  const int threads = 32;
-  const int blocks = (Np + threads - 1) / threads;
-  ilqr_backward_kernel<S, DX, DU><<<blocks, threads, 0, stream>>>(
+  const StreamProducer<S, DX, DU> prod{
       (const S*)in[0], (const S*)in[1], (const S*)in[2], (const S*)in[3], (const S*)in[4],
-      (const S*)in[5], (const S*)in[6], (const S*)in[7], (const S*)in[8], (const S*)in[9],
-      (S*)out[0], (S*)out[1], (S*)out[2], (unsigned char*)out[3], T, Np, reg);
-  return (int)cudaGetLastError();
+      (const S*)in[5], (const S*)in[6], (const S*)in[7], (const S*)in[8], (size_t)Np};
+  return launch_staged<S, DX, DU, StreamProducer<S, DX, DU>>(
+      ilqr_backward_kernel<S, DX, DU>, Np, stream, prod, (const S*)in[9], (S*)out[0],
+      (S*)out[1], (S*)out[2], (unsigned char*)out[3], T, Np, reg);
 }
 
 // C entry point.  dtype: 0 float32, 1 float64.  Returns the CUDA error of the
-// launch, or -1 when no kernel is instantiated for (dtype, dx, du).
+// launch, or -1 when no kernel is instantiated for (dtype, dx, du) or Np is
+// not a multiple of the group (16).  The streams must be 16-byte aligned.
 extern "C" int trajopt_ilqr_backward(
     int dtype, int dx, int du, const void* cxx, const void* cx, const void* cuu,
     const void* cu, const void* cxu, const void* A, const void* B, const void* vT,
