@@ -9,19 +9,20 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
 2. build the CUDA kernels from trajopt_torch/csrc (nvcc, sm_90a, in parallel);
 3. hold each kernel K1-K4 against its plain PyTorch version on the same
    inputs (made with numpy from a fixed seed): float64 at a small shape with a
-   batch that is not a multiple of 32 and saturated actions, and K1/K4 again
+   batch that is not a multiple of 32 and saturated actions, and K1-K4 again
    at T=45, N=50 (neither a whole number of their 16-step chunks nor of
-   their 16-instance groups), both reg values; float32 at the main path's
-   shape (N=2048, T=1000), K1 on Cartpole v0 and v1;
+   their 16-instance groups), K1/K4 for both reg values, K2/K3 for 11 and 3
+   α candidates (K2 takes 6 a block); float32 at the main path's shape
+   (N=2048, T=1000), K1 on Cartpole v0 and v1;
 4. the main path: make_ilqr_solver_batched on Cartpole-TO-v0, T=1000,
    N=2048, 10 iterations, backward="cuda-fused", rollout="cuda", float32, from
    the benchmark's x0; it must go through K1, K2 and K3, give finite returns
    no higher than the initial ones, and agree with the scan engines (plain
    PyTorch, no kernel) on the mean final return; then backward="cuda" (K4);
 5. timings with CUDA events after a warm-up: ms per batch-iteration and
-   instance-iterations/s of the main path; per kernel ms per launch (K1/K4:
-   device time with launches queued back to back, and the time per call as
-   call_ms; K2/K3: around calls), launches per iteration, the plain version's
+   instance-iterations/s of the main path; per kernel ms per launch (device
+   time with launches queued back to back, and the time per call as
+   call_ms), launches per iteration, the plain version's
    ms and the least time the card could take (bound) from this run's bytes
    and operations;
 6. kernel K5 (the parallel-in-time backward) against its plain version:
@@ -133,7 +134,7 @@ F32_OPS_PER_S = 67e12
 
 T_MAIN, N_MAIN, NB_ITER = 1000, 2048, 10
 N_SMALL, T_SMALL = 50, 48
-# K1 and K4 stage 16 steps of 16 instances at a time: a horizon that is not a
+# K1-K4 stage 16 steps of 16 instances at a time: a horizon that is not a
 # whole number of chunks and a batch that is not a whole number of groups
 N_RAGGED, T_RAGGED = 50, 45
 
@@ -383,7 +384,7 @@ def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_i
     each kernel's main output and the inputs, for the timings.  The rollouts
     run on ``rollout_inputs`` (streams, weighting) when given, else under the
     gains of the plain backward on the backward's own trajectory."""
-    from trajopt_torch.core import cuda_lqr, cuda_rollout
+    from trajopt_torch.core import cuda_lqr
     from trajopt_torch.solvers.common import DEFAULT_ALPHAS
 
     errs, inp = check_backwards(env_v0, env_v1, N, T, dtype, tol, device, reg_modes)
@@ -393,21 +394,35 @@ def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_i
     else:
         streams, w = rollout_inputs
     alphas = torch.tensor(DEFAULT_ALPHAS, dtype=dtype, device=device)
-    ret, ok = cuda_rollout.cuda_rollout_returns(env_v0, *streams, w, alphas)
-    retp, okp = cuda_rollout.rollout_returns_plain(env_v0, *streams, w, alphas)
-    torch.cuda.synchronize()
-    errs["K2"] = errors("K2 returns", ret, retp, tol)
-    same_flags("K2 ok", ok, okp)
+    errs.update(check_rollouts(env_v0, streams, w, alphas, tol))
     pick = torch.arange(streams[0].shape[2], device=device) % alphas.shape[0]
     alpha_l = alphas[pick].contiguous()
-    outs = cuda_rollout.cuda_rollout_selected(env_v0, *streams, w, alpha_l)
-    outsp = cuda_rollout.rollout_selected_plain(env_v0, *streams, w, alpha_l)
-    torch.cuda.synchronize()
-    errs["K3"] = errors("K3 states", outs[0], outsp[0], tol)
-    for i, part in enumerate(("actions", "terminal state", "returns")):
-        errors(f"K3 {part}", outs[i + 1], outsp[i + 1], tol)
     inp.update(streams=streams, w_roll=w, alphas=alphas, alpha_l=alpha_l, env=env_v0)
     return errs, inp
+
+
+def check_rollouts(env, streams, w, alphas, tol, label=""):
+    """Hold K2 (every α of ``alphas``) and K3 (instance n at α number n mod
+    nA) against their plain versions on the same streams: outputs within
+    ``tol`` of the largest entry, ``ok`` flags equal.  Returns each kernel's
+    max abs error (K2's returns, K3's states)."""
+    from trajopt_torch.core import cuda_rollout
+
+    errs = {}
+    ret, ok = cuda_rollout.cuda_rollout_returns(env, *streams, w, alphas)
+    retp, okp = cuda_rollout.rollout_returns_plain(env, *streams, w, alphas)
+    torch.cuda.synchronize()
+    errs["K2"] = errors(f"K2{label} returns", ret, retp, tol)
+    same_flags(f"K2{label} ok", ok, okp)
+    pick = torch.arange(streams[0].shape[2], device=alphas.device) % alphas.shape[0]
+    alpha_l = alphas[pick].contiguous()
+    outs = cuda_rollout.cuda_rollout_selected(env, *streams, w, alpha_l)
+    outsp = cuda_rollout.rollout_selected_plain(env, *streams, w, alpha_l)
+    torch.cuda.synchronize()
+    errs["K3"] = errors(f"K3{label} states", outs[0], outsp[0], tol)
+    for i, part in enumerate(("actions", "terminal state", "returns")):
+        errors(f"K3{label} {part}", outs[i + 1], outsp[i + 1], tol)
+    return errs
 
 
 def pscan_problem(T, dx, du, dtype, device, seed=0, non_pd=False):
@@ -539,7 +554,7 @@ def device_ms_back_to_back(fn, reps):
     """Device time per call of ``fn`` with its launches queued back to back:
     a sleep kernel holds the stream while the host enqueues ``reps`` calls, so
     the CUDA events bracket the device's work alone and not the host's time
-    between launches.  Used for K1/K4 and K6-K16, whose wrappers launch
+    between launches.  Used for K1-K4 and K6-K16, whose wrappers launch
     nothing but the kernel (the profiler recorded only 1-2 of 20 of K6/K7's
     launches).  Returns (ms per call, the host's enqueue ms, the sleep's
     ms)."""
@@ -2180,7 +2195,18 @@ def main():
     x0 = torch.zeros(N_MAIN, env_v0.dm_state, device=dev)
     x0[:, 0] = 0.01 * torch.arange(N_MAIN, device=dev, dtype=torch.float32)
     check_kernels(env_v0, env_v1, N_SMALL, T_SMALL, torch.float64, 1e-9, dev, (1, 2))
-    check_backwards(env_v0, env_v1, N_RAGGED, T_RAGGED, torch.float64, 1e-9, dev, (1, 2))
+    _, rag = check_backwards(env_v0, env_v1, N_RAGGED, T_RAGGED, torch.float64, 1e-9, dev,
+                             (1, 2))
+    # K2 and K3 stage 16 steps of 16 instances too, K2 6 α candidates a block
+    from trajopt_torch.core.cuda_lqr import _ilqr_backward_plain
+    from trajopt_torch.solvers.common import DEFAULT_ALPHAS
+
+    rag_K, rag_kff, _, _ = _ilqr_backward_plain(rag["packed"], rag["lam"], 1)
+    log(f"rollout checks: torch.float64, N={N_RAGGED} (lanes {rag['n_pad']}), T={T_RAGGED}")
+    for nA, picked in ((11, DEFAULT_ALPHAS), (3, DEFAULT_ALPHAS[::5])):
+        check_rollouts(env_v0, (rag_K, rag_kff, rag["xr"], rag["ur"]), rag["w"],
+                       torch.tensor(picked, dtype=torch.float64, device=dev), 1e-9,
+                       f" nA={nA}")
     errs, inp = check_kernels(env_v0, env_v1, N_MAIN, T_MAIN, torch.float32, 2e-3, dev, (1,),
                               main_path_streams(env_v0, x0))
 
@@ -2294,11 +2320,11 @@ def main():
     rows = []
     for k in ("K1", "K2", "K3", "K4"):
         kernel, plain = calls[k]
-        # K1/K4: the kernel's device time with launches queued back to back
-        # (about 0.5 ms each, so a call's host work would show), and the time
-        # per call beside it; K2/K3: CUDA events around calls, as before
+        # the kernel's device time with launches queued back to back (about
+        # 0.5 ms each, so a call's host work would show), and the time per
+        # call beside it
         call_ms = time_cuda(kernel, 10)
-        ms = device_ms_back_to_back(kernel, 10)[0] if k in ("K1", "K4") else call_ms
+        ms = device_ms_back_to_back(kernel, 10)[0]
         plain_ms = time_cuda(plain, 1)
         bytes_ms = 1e3 * moved[k] / HBM_BYTES_PER_S
         ops_ms = 1e3 * OPS_PER_STEP[k] * steps[k] / F32_OPS_PER_S

@@ -182,3 +182,23 @@ def test_scan_rollout_tracking_matches_jax(name):
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TOL)
     np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), **TOL)
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("Np,refusal", [(16, "multiple of 32"), (48, "multiple of 32"),
+                                        (1000, "multiple of 32"), (64, "CUDA device")])
+@pytest.mark.parametrize("phase", ["K2", "K3"])
+def test_rollout_wrappers_take_whole_lane_groups(phase, Np, refusal):
+    """As K1's and K4's wrappers: the staged K2/K3 take whole groups of
+    instances, so a device batch whose lane count is not lane_pad's multiple
+    of 32 is refused before any launch; a padded one passes on to the device
+    checks (here: meta tensors)."""
+    tenv = env_from_fields("Cartpole-TO-v0", {})
+    T = 3
+    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    streams = (z(T, 4, Np), z(T, 1, Np), z(T, 4, Np), z(T, 1, Np))
+    wrapper = cuda_rollout_returns if phase == "K2" else cuda_rollout_selected
+    alphas = z(3) if phase == "K2" else z(Np)
+    launches = wrapper.launches
+    with pytest.raises(ValueError, match=refusal):
+        wrapper(tenv, *streams, z(T + 1), alphas)
+    assert wrapper.launches == launches

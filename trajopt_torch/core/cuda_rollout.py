@@ -3,11 +3,17 @@
 Counterpart of ``trajopt_tpu/core/pallas_rollout.py``:
 
 * :func:`cuda_rollout_returns` (K2, ``_returns_kernel``): phase A, every α
-  candidate rolled out at once, one thread per (α, instance); only the
+  candidate rolled out at once, one lane per (α, instance); only the
   per-candidate returns and the ``x < 1e8`` flags are written.
 * :func:`cuda_rollout_selected` (K3, ``_selected_kernel``): phase B, each
   instance rolls out again under its own selected α and writes the states and
   actions that become the next reference trajectory.
+
+Both kernels are staged (``csrc/ring.cuh``): a producer warp copies the next
+chunk of the streams into shared memory while the consumer lanes walk the
+time loop over the chunk before, so they take whole groups of instances
+(``Np`` a multiple of 32, as ``lane_pad`` makes it) and 16-byte aligned
+streams.
 
 Both take the structure-of-arrays streams of ``cuda_lqr`` — ``K (T, du·dx,
 Np)``, ``kff (T, du, Np)``, ``xref (T, dx, Np)`` (row 0 is the start state),
@@ -25,7 +31,7 @@ import torch
 from torch import Tensor
 
 from ..kernels import _build
-from .cuda_lqr import to_soa
+from .cuda_lqr import check_lanes, to_soa
 
 # --------------------------------------------------------------------------------------
 # Tile-level env physics: sequences of per-component tensors
@@ -196,17 +202,27 @@ def _dims(K, xref, uref):
     return T, dx, du, Np
 
 
+def _check_aligned(what, *streams):
+    if any(t.data_ptr() % 16 for t in streams):
+        # the kernel stages the streams with 16-byte cp.async copies
+        raise ValueError(f"{what}: the streams must be 16-byte aligned")
+
+
 def cuda_rollout_returns(env, K, kff, xref, uref, weighting, alphas):
     """Phase A (K2): returns ``(returns (nA, Np), ok (nA, Np) bool)`` for the
-    whole α grid ``alphas (nA,)``; ``ok`` is the states-below-1e8 flag over
-    the whole trajectory (NaN clears it)."""
+    whole α grid ``alphas (nA,)``, any ``nA >= 1``; ``ok`` is the
+    states-below-1e8 flag over the whole trajectory (NaN clears it).  CUDA
+    tensors launch the kernel (``Np`` a multiple of 32); CPU tensors run the
+    plain version on any ``Np``."""
     T, dx, du, Np = _dims(K, xref, uref)
     if xref.device.type == "cpu":
         return rollout_returns_plain(env, K, kff, xref, uref, weighting, alphas)
+    check_lanes("K2 rollout_returns", Np)
     kind, params = env_kernel_args(env, dx, du)
     w = weighting[: T + 1].contiguous()
     ins = [K, kff, xref, uref, w, alphas]
     code = _build.cuda_operands("K2 rollout_returns", *ins)
+    _check_aligned("K2 rollout_returns", K, kff, xref, uref)
     nA = alphas.shape[0]
     ret = torch.empty(nA, Np, dtype=xref.dtype, device=xref.device)
     ok = torch.empty(nA, Np, dtype=torch.bool, device=xref.device)
@@ -223,14 +239,17 @@ def cuda_rollout_returns(env, K, kff, xref, uref, weighting, alphas):
 def cuda_rollout_selected(env, K, kff, xref, uref, weighting, alpha_l):
     """Phase B (K3): roll out each lane's own ``alpha_l (Np,)``.  Returns
     ``(states (T, dx, Np) [pre-step], actions (T, du, Np), xT (dx, Np),
-    returns (Np,))``."""
+    returns (Np,))``.  CUDA tensors launch the kernel (``Np`` a multiple of
+    32); CPU tensors run the plain version on any ``Np``."""
     T, dx, du, Np = _dims(K, xref, uref)
     if xref.device.type == "cpu":
         return rollout_selected_plain(env, K, kff, xref, uref, weighting, alpha_l)
+    check_lanes("K3 rollout_selected", Np)
     kind, params = env_kernel_args(env, dx, du)
     w = weighting[: T + 1].contiguous()
     ins = [K, kff, xref, uref, w, alpha_l]
     code = _build.cuda_operands("K3 rollout_selected", *ins)
+    _check_aligned("K3 rollout_selected", K, kff, xref, uref)
     kw = dict(dtype=xref.dtype, device=xref.device)
     xs = torch.empty(T, dx, Np, **kw)
     us = torch.empty(T, du, Np, **kw)

@@ -8,14 +8,12 @@
 //
 // The staged design.  Only the value carry (V, v, dV, flag) depends on the
 // step before; a step's operands (the cost blocks and A, B) do not.  So each
-// block takes a group of kGroup instances and splits its warps: warp 0 is the
-// consumer, one lane per instance, and walks t = T−1 … 0 through
-// staged_chain, reading every operand from shared memory; the producer warps
-// run ahead and fill a ring of kStages stages of a chunk of steps each (K4
-// copies its streams with cp.async, K1 computes the linearization and the
-// cost blocks there).  Named barriers hand the stages over: a producer
-// arrives on FULL(s) after filling stage s and waits on EMPTY(s) before
-// refilling it; the consumer waits on FULL(s) and arrives on EMPTY(s).
+// block takes a group of kGroup instances and splits its warps (ring.cuh):
+// warp 0 is the consumer, one lane per instance, and walks t = T−1 … 0
+// through staged_chain, reading every operand from shared memory; the
+// producer warps run ahead and fill the ring of stages, a chunk of steps
+// each (K4 copies its streams with cp.async, K1 computes the linearization
+// and the cost blocks there).
 // kGroup = 16 makes a batch of 2048 128 blocks on the H100's 132 SMs.  The
 // consumer's warp keeps its SM sub-partition's scheduler to itself (the
 // producers take the other three), because the chain, about 520 dependent
@@ -27,6 +25,7 @@
 
 #include <cuda_runtime.h>
 
+#include "ring.cuh"
 #include "scalar.cuh"
 
 // C = A B for A (n, k), B (k, m).
@@ -293,7 +292,6 @@ __device__ __forceinline__ void bwd_step(
 
 constexpr int kGroup = 16;   // instances per block, one consumer lane each
 constexpr int kChunk = 16;   // steps per stage
-constexpr int kStages = 2;   // stages in the ring
 
 // Entry offsets of one step's operands in a stage.  A stage holds kChunk
 // steps; entry e of step slot s of lane g sits at [(s·E + e)·kGroup + g], so
@@ -304,32 +302,10 @@ struct StepSlot {
                        CUU = CX + DX, CU = CUU + DU * DU, CXU = CU + DU, E = CXU + DX * DU;
 };
 
-// The block of a staged kernel whose producer runs kWarps producer warps.
-// Warp w of a block issues from SM sub-partition w mod 4; warp 0 is the
-// consumer, and every fourth warp after it exits at once, so the producers
-// share the other three sub-partitions' schedulers and the chain has its own.
+// The block of a staged backward whose producer runs kWarps producer warps:
+// warp 0 is the consumer, and the producers leave its sub-partition to it.
 template <class Producer>
-struct Staged {
-  static constexpr int kProducers = Producer::kWarps;
-  static constexpr int kWarps = 1 + kProducers + (kProducers - 1) / 3;   // idle ones too
-  static constexpr int kThreads = 32 * kWarps;                           // launched
-  static constexpr int kBarrier = 32 * (1 + kProducers);                 // at the barriers
-};
-
-// Named barriers 1 … 2·kStages (0 is __syncthreads') over N threads.  Each
-// helper first reconverges the warp: bar is warp-aligned.
-template <int N>
-__device__ __forceinline__ void named_sync(int id) {
-  __syncwarp();
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(N) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void named_arrive(int id) {
-  __syncwarp();
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(N) : "memory");
-}
-__device__ __forceinline__ int full_barrier(int stage) { return 1 + stage; }
-__device__ __forceinline__ int empty_barrier(int stage) { return 1 + kStages + stage; }
+using Staged = WarpRoles<1, Producer::kWarps>;
 
 // Chunk k of a horizon of T steps: its first (latest) step and its length.
 __device__ __forceinline__ void chunk_span(int k, int T, int& t_hi, int& steps) {
@@ -416,11 +392,11 @@ __device__ __forceinline__ void staged_backward(
       const int st = k % kStages;
       int t_hi, steps;
       chunk_span(k, T, t_hi, steps);
-      named_sync<G::kBarrier>(full_barrier(st));
+      ring_acquire<G::kBarrier>(k);
       if (live)
         staged_chain<S, DX, DU>(ring + st * STAGE, g, t_hi, steps, V, v, dv0, dv1, bad, l, reg,
                                 K_out, kff_out, np, n);
-      if (k + kStages < chunks) named_arrive<G::kBarrier>(empty_barrier(st));
+      ring_release<G::kBarrier>(k, chunks);
     }
     if (live) {
       dV[n] = dv0;
@@ -428,31 +404,25 @@ __device__ __forceinline__ void staged_backward(
       bad_out[n] = bad ? 1 : 0;
     }
   } else {
-    if (warp % 4 == 0) return;   // warp 0's sub-partition stays the consumer's
-    const int tid = (warp - 1 - warp / 4) * 32 + threadIdx.x % 32;
+    if (G::idle(warp)) return;   // warp 0's sub-partition stays the consumer's
+    const int tid = G::producer(warp) * 32 + threadIdx.x % 32;
     for (int k = 0; k < chunks; ++k) {
       const int st = k % kStages;
       int t_hi, steps;
       chunk_span(k, T, t_hi, steps);
-      if (k >= kStages) named_sync<G::kBarrier>(empty_barrier(st));
+      ring_reserve<G::kBarrier>(k);
       prod.fill(ring + st * STAGE, t_hi, steps, n0, tid);
-      named_arrive<G::kBarrier>(full_barrier(st));
+      ring_publish<G::kBarrier>(k);
     }
   }
 }
 
-// Launch a staged kernel over Np instances: raise the block's dynamic shared
-// memory limit to the ring's size, launch, and return the CUDA error (or −1
-// when Np is not a whole number of groups).
+// Launch a staged backward over Np instances (the CUDA error, or −1 when Np
+// is not a whole number of groups).
 template <typename S, int DX, int DU, class Producer, typename Kernel, typename... Args>
 __host__ int launch_staged(Kernel kernel, int Np, cudaStream_t stream, Args... args) {
-  using G = Staged<Producer>;
   if (Np % kGroup != 0) return -1;
   const int bytes = (int)sizeof(S) * kStages * kChunk * StepSlot<DX, DU>::E * kGroup;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (Np == 0) return 0;
-  kernel<<<Np / kGroup, G::kThreads, bytes, stream>>>(args...);
-  return (int)cudaGetLastError();
+  return launch_ring(kernel, dim3(Np / kGroup), Staged<Producer>::kThreads, bytes, stream,
+                     args...);
 }

@@ -25,16 +25,6 @@
 
 #include "bwd_step.cuh"
 
-// A 16-byte copy from device memory to shared memory that bypasses L1, and
-// the wait for all of this thread's copies to land.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
-}
-
 // The producer of the staged backward: copies the streams' rows of a chunk.
 template <typename S, int DX, int DU>
 struct StreamProducer {
