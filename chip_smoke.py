@@ -51,11 +51,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    dt=0.05, T=100, N=4096, 10 iterations of 64 bisection steps, float32,
    engine="cuda"; exactly 640 launches each of K6 and K7, finite traces, no
    final return above its initial one, and the scan engine on the first 64
-   instances for 3 iterations within rtol/atol 1e-4; ms per outer iteration
+   instances for 2 iterations within rtol/atol 1e-4; ms per outer iteration
    and per dual evaluation, and a torch.profiler split of one iteration;
 11. the GPS-MPC farm: run_gps_mpc_batch (batched, engine="cuda") on
-   Pendulum-TO-v0, 50 episodes, horizon 20, 50 steps, 3 iterations; finite
-   costs, the first 4 episodes' first 5 steps against the scan engine on the
+   Pendulum-TO-v0, 50 episodes, horizon 20, 25 steps, 3 iterations; finite
+   costs, the first 4 episodes' first 2 steps against the scan engine on the
    same draws; control steps/s; then K6/K7's times at the solver path's and
    the benchmark's shapes;
 12. kernel K8 (the belief-value backward) against its plain version:
@@ -73,8 +73,8 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    reg=2 and goal weights mu_w=(-2, -2); then make_cuda_bsp_solve as a user
    calls it: one K9 launch, a decreasing trace, its device time and bound;
 15. the light-dark MPC episode: K10 against its plain version and the scan
-   runner on the same normals, float64, 5 steps; the scan runner's control
-   steps/s over 5 steps (float32); bench.py:447's episode (horizon 25, 50
+   runner on the same normals, float64, 3 steps; the scan runner's control
+   steps/s over 3 steps (float32); bench.py:447's episode (horizon 25, 50
    steps, 10 iterations, float32) with engine="auto", which must resolve to
    K10, agree with K10's plain version on the same normals over all 50 steps
    and end with the belief mean within 0.1 of the goal; K10's control
@@ -88,14 +88,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    N=64 and N=1 (one K14 launch each) and N=1024 (K11 and K12 10 launches
    each, K13 12), finite; the timed float32 K14 solve held to its plain
    version over all 10 iterations; both kernel engines held to the scan
-   engine in float64 on 8 instances over 3 iterations (trace rtol/atol
+   engine in float64 on 8 instances over 2 iterations (trace rtol/atol
    1e-8) and to each other over 10; ms per solve and instance-iterations/s
    at N=64, 1024 and 1, the scan engine's ms for one iteration at N=64, and
    each kernel's device time, bound and plain time;
 17. the robust-GPS kernels K15-K16 (the adversary's MatrixNormal sweep and
    the cubature-KL step) against their plain versions: float64 at dims 2/1
    (p = 8, N=3, T=5) and 4/2 (p = 28, N=8, T=16), each with a non-PD case
-   (flags equal, non-finite entries in the same places; 1e-9); float32 at
+   (flags equal, non-finite entries in the same places; 1e-9); float32
+   exactly (equal where finite) at the two main-path shapes (N=1: T=60, dims
+   2/1; T=50, dims 4/2), in a non-PD case (N=3, T=16, dims 4/2) and with
+   β+η scaled so that the pivots leave [2^-100, 2^100); float32 at
    bench.py:669's shape (T=100, dims 4/2, N=8 and 64), one trip and the
    damped fixed point from staggered marginals (capped at 4 trips); the
    two main-path configurations with fp_engine="auto" (LQR-TO-v1 lr, T=60,
@@ -148,21 +151,25 @@ N_RAGGED, T_RAGGED = 50, 45
 #   -> fused step about 2030; stream backward step 520.
 OPS_PER_STEP = {"K1": 2030, "K2": 192, "K3": 192, "K4": 520}
 
-# The replan path (bench.py's mpc_batch1_replan_ms row) and the MPC example.
-T_REPLAN, ITER_REPLAN, REPLANS = 100, 3, 5
+# The replan path (bench.py's mpc_batch1_replan_ms row), timed over 3 replans
+# for each backward, and the MPC example.  The timed replans, the GPS-MPC
+# farm and the scan-engine comparisons of the GPS, belief and eLQR paths
+# below are kept short to hold the script well inside its 1200 s.
+T_REPLAN, ITER_REPLAN, REPLANS = 100, 3, 3
 MPC_HORIZON, MPC_STEPS, MPC_ITER = 25, 100, 10
 
 # The GPS paths: the batched swing-up solver at the GPS example's horizon
 # (BASELINE.md:18) over 4096 instances, held against the scan engine on its
-# first 64 for 3 iterations; the GPS-MPC farm of
-# examples/gps/analytical/mpc/mb_pendulum_parallel.py (50 jobs), held against
-# the scan engine on 4 episodes for 5 steps; the dual chain's benchmark shape
+# first 64 for 2 iterations; the GPS-MPC farm of
+# examples/gps/analytical/mpc/mb_pendulum_parallel.py (50 jobs, 25 of its 50
+# steps), held against the scan engine on 4 episodes for 2 steps (the first
+# replan and a warm-started one); the dual chain's benchmark shape
 # (bench.py's gps_dual_eval_tps row: T=1000, batch 4096, dx=4, du=2).
 GPS_KW = dict(kl_bound=2.0, action_penalty=1e-5)
 T_GPS, N_GPS, GPS_ITER, GPS_BISECT = 100, 4096, 10, 64
-N_GPS_SCAN, GPS_ITER_SCAN = 64, 3
-GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS, GPS_MPC_ITER = 50, 20, 50, 3
-GPS_MPC_CHECK_EPISODES, GPS_MPC_CHECK_STEPS = 4, 5
+N_GPS_SCAN, GPS_ITER_SCAN = 64, 2
+GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS, GPS_MPC_ITER = 50, 20, 25, 3
+GPS_MPC_CHECK_EPISODES, GPS_MPC_CHECK_STEPS = 4, 2
 T_DUAL, N_DUAL = 1000, 4096
 
 # The belief paths: K8 at bench.py's backward row (bench.py:511: LightDark's
@@ -170,19 +177,19 @@ T_DUAL, N_DUAL = 1000, 4096
 # iterations, held against the scan engine on its first 64 instances; K9's
 # solve and K10's light-dark episode at bench.py:447's configuration
 # (horizon 25, 50 control steps, 10 iterations), K10 held against its plain
-# version and the scan runner over the first 5 steps in float64.
+# version and the scan runner over the first 3 steps in float64.
 T_BSP, N_BSP, BSP_ITER, BSP_STEPS = 25, 4096, 10, 50
-N_BSP_SCAN, BSP_CHECK_STEPS = 64, 5
+N_BSP_SCAN, BSP_CHECK_STEPS = 64, 3
 
 # The eLQR paths: bench.py:390-420 (Cartpole-TO-v0, T=100, 10 iterations, batch
 # 64 through the single-launch solve K14 and batch 1024 through the streamed
 # sweeps K11-K13) and bench.py:1055's batch 1; float64 checks at N=50, T=16;
-# the kernel engines held to the scan engine on 8 instances over 3 iterations
+# the kernel engines held to the scan engine on 8 instances over 2 iterations
 # and the scan engine timed over 1 (its torch.func steps take about 11 s an
 # iteration at T=100, so 10 would take minutes).
 T_ELQR, ELQR_ITER, N_ELQR_FUSED, N_ELQR_STREAM = 100, 10, 64, 1024
 N_ELQR_SMALL, T_ELQR_SMALL, ELQR_SMALL_ITER = 50, 16, 3
-N_ELQR_SCAN, ELQR_SCAN_ITER, ELQR_SCAN_TIMED_ITER = 8, 3, 1
+N_ELQR_SCAN, ELQR_SCAN_ITER, ELQR_SCAN_TIMED_ITER = 8, 2, 1
 # float32 tolerances, of the largest entry: one sweep at T=100 (K11, K12, and
 # K13's returns; read up to 3.0e-5), K13's states and actions (a closed loop
 # of 100 steps under the gains of order 1e3 that K12 returns carries the
@@ -206,6 +213,17 @@ RGPS_LQR = dict(variant="lr", nb_iter=2, init_action_sigma=10.0, policy_kl_bound
 RGPS_ROBOT = dict(variant="mb", nb_iter=2, init_action_sigma=1.0, policy_kl_bound=1.0,
                   param_nominal_kl_bound=50.0, nominal_variance=1e-8)
 RGPS_SCAN_CUT = dict(nb_iter=1, beta_iters=3, fp_iters=6, alpha_bisect_iters=8)
+# K15/K16 held exactly to their plain versions in float32 (the plain versions
+# repeat the kernels' arithmetic in the kernels' order, each operation rounded
+# once): the two main-path shapes, one row each, a non-PD case, and β+η
+# scaled by 1e36 and 1e-32 so that W's pivots fall below 2^-100 and reach
+# 2^100 or more, where the pivots' square root scales its argument (csrc/
+# pivot.cuh).  (label, N, T, (dx, du), non-PD, the scale of β+η)
+RGPS_EXACT_CASES = (("LQR-TO-v1 path", 1, T_RGPS_LQR, (2, 1), False, 1.0),
+                    ("Robot-TO-v0 path", 1, T_RGPS_ROBOT, (4, 2), False, 1.0),
+                    ("non-PD", 3, 16, (4, 2), True, 1.0),
+                    ("tiny pivots", 2, 6, (4, 2), False, 1e36),
+                    ("huge pivots", 2, 6, (4, 2), False, 1e-32))
 RGPS_BATCH_ITER = 1
 # the whole fixed point of the f32 check, from staggered marginals, capped
 # at 4 trips: the plain versions take 4.5-6.5 s a trip at T=100, dims 4/2
@@ -1354,8 +1372,8 @@ def k9_phase(device, card, wrappers, checks):
 
 def bsp_episode_phase(device, card, wrappers):
     """The light-dark MPC episode: K10 against its plain version and the scan
-    runner on the same normals in float64 over 5 steps; the scan runner's
-    rate in float32 over 5 steps; then bench.py:447's episode (horizon 25, 50
+    runner on the same normals in float64 over 3 steps; the scan runner's
+    rate in float32 over 3 steps; then bench.py:447's episode (horizon 25, 50
     steps, 10 iterations, float32) with engine="auto", which must resolve to
     K10, held against its plain version over all 50 steps; its rate, device
     time and bound."""
@@ -1791,11 +1809,30 @@ def k15_operations(T, N, dx, du):
     the moments (about 4·p1² + 60), W and w (8p² + 3p), the left-looking
     Cholesky, the triangular inverse and MᵀM (p³/3 multiply-adds each, so
     p³ in all, with p square roots and 2p divides), μθ* (2p²), the correction
-    blocks (2·dx²·p1²) and the value recursion (about 600 at dims 4/2)."""
+    blocks (2·dx²·p1²) and k15_value's recursion of V' and v' (A + BK, c +
+    Bkff, Kᵀ(−Cuu + Puu), V'(A + BK), V'c and the sums of V and v: 768 at dims
+    4/2).  The value carry's constant term is not counted: the kernel leaves
+    it out, since no output reads it."""
     p1 = dx + du + 1
     p = dx * p1
+    value = dx * dx * (7 * du + 4 * dx + 3) + dx * (11 * du + 6 * dx + 4) + dx * du * (3 * du - 1)
     return T * N * (4 * p1 * p1 + 60 + 8 * p * p + 3 * p + p ** 3 + 3 * p + 2 * p * p
-                    + 2 * dx * dx * p1 * p1 + 600)
+                    + 2 * dx * dx * p1 * p1 + value)
+
+
+# K15 leaves c0, Cuu at t + 1 (cuun), Σd (sigd) and v0T unread: they feed
+# only the value carry's constant term, which no output reads.
+K15_UNREAD = ("c0", "cuun", "sigd")
+
+
+def k15_reads(packed, qmu, qsig):
+    """The tensors one K15 launch reads, each once (the marginal q at steps
+    0 … T − 1)."""
+    from trajopt_torch.core import cuda_rgps as cr
+
+    T = packed["cx"].shape[0]
+    return [packed[k] for k in cr._BACKWARD_KEYS if k not in K15_UNREAD] + [
+        qmu[:T], qsig[:T], packed["bpe"], packed["vT"], packed["vvT"]]
 
 
 def k16_operations(T, N, dx, du):
@@ -1915,6 +1952,18 @@ def check_rgps_kernels(device):
             label = f"f64 dims {dx}/{du} N={N} T={T}{' non-PD' if non_pd else ''}"
             check_rgps_case(label, *rgps_problem(N, T, dx, du, 20 + dx, torch.float64, device,
                                                  non_pd), 1e-9, expect_bad=non_pd)
+    log("K15/K16 checks: float32 at the main path's shapes, a non-PD case and pivots out of "
+        "[2^-100, 2^100), equal to the plain versions where finite (flags and non-finite "
+        "places equal)")
+    t0 = time.perf_counter()
+    for label, N, T, (dx, du), non_pd, scale in RGPS_EXACT_CASES:
+        packed, qmu, qsig = rgps_problem(N, T, dx, du, 50 + dx, torch.float32, device, non_pd)
+        packed["bpe"] = packed["bpe"] * scale
+        # a scaled β+η may leave W indefinite at later steps: the flags are
+        # held to the plain version's alone
+        check_rgps_case(f"f32 {label} N={N} T={T} dims {dx}/{du}", packed, qmu, qsig, 0.0,
+                        expect_bad=non_pd if scale == 1.0 else None)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
     log(f"K15/K16 checks: float32 at T={T_RGPS_FP}, dims 4/2, one trip (tolerance "
         f"{RGPS_F32_TRIP_TOL:.0e}) and the whole fixed point from staggered marginals, "
         f"fp_iters={RGPS_FP_CHECK_ITERS} (tolerance {RGPS_F32_FP_TOL:.0e})")
@@ -2043,14 +2092,26 @@ def rgps_phases(device, card, wrappers):
     for cfg, (dx, du) in (("lqr", (2, 1)), ("robot", (4, 2))):
         T = rgps_config(cfg)[1]
         packed, qmu, qsig = rgps_problem(1, T, dx, du, 40, torch.float32, device)
-        mo, so, _ = cr.cuda_rgps_param_backward(packed, qmu, qsig)
+        mo, so, bad = cr.cuda_rgps_param_backward(packed, qmu, qsig)
+        kl, qm, qs = cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig)
         k15_ms = device_ms_back_to_back(lambda: cr.cuda_rgps_param_backward(packed, qmu, qsig),
                                         20)[0]
         k16_ms = device_ms_back_to_back(
             lambda: cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig), 20)[0]
+        # the least time for this shape's work, as the kernel rows count it
+        bound = {}
+        for k, moved, ops in (
+                ("k15", nbytes(*k15_reads(packed, qmu, qsig), mo, so, bad),
+                 k15_operations(T, 1, dx, du)),
+                ("k16", nbytes(mo, so, *[packed[k] for k in ("sigd", "K", "kff", "sigc", "mu0",
+                                                               "sig0")], qmu, qsig, kl, qm, qs),
+                 k16_operations(T, 1, dx, du))):
+            bound[f"{k}_bound_ms"] = max(1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S)
+            bound[f"{k}_bound_by"] = ("bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+                                      else "operations")
         per_it = main[cfg]["per_iteration"]
         log(json.dumps({"metric": "rgps_kernel_share", "config": cfg, "T": T, "N": 1,
-                        "k15_ms": k15_ms, "k16_ms": k16_ms,
+                        "k15_ms": k15_ms, "k16_ms": k16_ms, **bound,
                         "kernel_ms_per_iteration": [c["K15"] * (k15_ms + k16_ms)
                                                     for c in per_it["counts"]],
                         "share_of_wall": [c["K15"] * (k15_ms + k16_ms) / w
@@ -2100,8 +2161,7 @@ def rgps_phases(device, card, wrappers):
     N, T = qmu.shape[-1], T_RGPS_FP
     mo, so, bad = cr.cuda_rgps_param_backward(packed, qmu, qsig)
     kl, qm, qs = cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig)
-    k15_in = [packed[k] for k in cr._BACKWARD_KEYS] + [qmu, qsig, packed["bpe"], packed["vT"],
-                                                       packed["vvT"], packed["v0T"]]
+    k15_in = k15_reads(packed, qmu, qsig)
     k16_in = [mo, so] + [packed[k] for k in ("sigd", "K", "kff", "sigc", "mu0", "sig0")] + [
         qmu, qsig]
     calls = {

@@ -19,6 +19,7 @@ source listed in the build.  Every JAX reference is frozen
 (``tests/make_torch_refs.py``)."""
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from trajopt_torch.core import cubature as tc
 from trajopt_torch.core import cuda_rgps as cr
 from trajopt_torch.core import scan_lqr as ts
 from trajopt_torch.core import types as tt
+from trajopt_torch.kernels import _build
 from trajopt_tpu.core import cubature as jc
 from trajopt_tpu.core import scan_lqr as js
 from trajopt_tpu.core import types as jt
@@ -442,3 +444,37 @@ def test_every_kernel_source_is_built():
 
     assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}
     assert "rgps.cu" in _build.SOURCES
+
+
+@pytest.mark.parametrize("source", sorted(_build.SOURCES))
+def test_kernel_headers_lie_in_csrc(source):
+    """Each source's quoted includes (rgps.cu's pivot.cuh and ring.cuh among
+    them) are files of ``csrc``, whose headers the build hashes into every
+    library's name, so an edited header rebuilds its kernels."""
+    text = (_build.CSRC / source).read_text()
+    headers = re.findall(r'#include "([^"]+)"', text)
+    assert all((_build.CSRC / h).is_file() for h in headers), headers
+    assert all(h.endswith(".cuh") for h in headers)
+
+
+@pytest.mark.parametrize("kernel", ["K15", "K16"])
+def test_rgps_wrappers_refuse_non_cuda_devices(kernel):
+    """A tensor on neither the CPU nor a CUDA device (here: meta) is refused
+    before any build or launch; no fallback to the plain version."""
+    T, dx, du, N = 3, 2, 1, 1
+    p = dx * (dx + du + 1)
+    z = lambda *s: torch.zeros(*s, device="meta")  # noqa: E731
+    shapes = dict(cxx=(T, dx * dx, N), cx=(T, dx, N), cuu=(T, du * du, N), cu=(T, du, N),
+                  cxu=(T, dx * du, N), c0=(T, 1, N), cuun=(T, du * du, N), acpp=(T, p * p, N),
+                  acp=(T, p, N), sigd=(T, dx * dx, N), K=(T, du * dx, N), kff=(T, du, N),
+                  sigc=(T, du * du, N), bpe=(N,), vT=(dx * dx, N), vvT=(dx, N), v0T=(1, N),
+                  mu0=(dx, N), sig0=(dx * dx, N))
+    packed = {k: z(*v) for k, v in shapes.items()}
+    qmu, qsig = z(T + 1, dx, N), z(T + 1, dx * dx, N)
+    launches = (cr.cuda_rgps_param_backward.launches, cr.cuda_rgps_cubature_kl.launches)
+    with pytest.raises(ValueError, match="CUDA device"):
+        if kernel == "K15":
+            cr.cuda_rgps_param_backward(packed, qmu, qsig)
+        else:
+            cr.cuda_rgps_cubature_kl(packed, z(T, p, N), z(T, p * p, N), qmu, qsig)
+    assert (cr.cuda_rgps_param_backward.launches, cr.cuda_rgps_cubature_kl.launches) == launches

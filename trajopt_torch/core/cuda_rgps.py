@@ -21,8 +21,10 @@ Operands are structure-of-arrays streams with time leading, ``(T, entries,
 N)`` (entry ``i·cols + j`` of a per-step block), written once per adversary
 dual evaluation by :func:`pack_rgps_problem`; the carried marginal is ``(T+1,
 dx, N)`` / ``(T+1, dx², N)`` (:func:`pack_rgps_xdist`).  Each kernel runs one
-thread block per row: K15 keeps W, its factor and its inverse in shared
-memory, K16 gives each cubature point a thread.
+thread block per row and any N ≥ 1: K15 factors W in one warp, a row a lane,
+and spreads the inverse, MᵀM and the value recursion over lanes while its
+other warps stage the next steps; K16 spreads each step's quadratic forms,
+point factors and reduction over lanes (``csrc/rgps.cu`` has the design).
 
 Numerical contract (that of the TPU kernels): a non-PD pivot gives NaN,
 unguarded, so a non-PD W yields NaN in the factor exactly where the scan
