@@ -89,7 +89,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    each, K13 12), finite; the timed float32 K14 solve held to its plain
    version over all 10 iterations; both kernel engines held to the scan
    engine in float64 on 8 instances over 2 iterations (trace rtol/atol
-   1e-8) and to each other over 10; ms per solve and instance-iterations/s
+   1e-8) and to each other over 10; K14 in float32 where its division
+   scales numerators below 2^-99 and where a sine argument past 105615
+   sends its RK4 back to the library's operations, held to its plain
+   version; ms per solve and instance-iterations/s
    at N=64, 1024 and 1, the scan engine's ms for one iteration at N=64, and
    each kernel's device time, bound and plain time;
 17. the robust-GPS kernels K15-K16 (the adversary's MatrixNormal sweep and
@@ -196,6 +199,16 @@ N_ELQR_SCAN, ELQR_SCAN_ITER, ELQR_SCAN_TIMED_ITER = 8, 2, 1
 # rounding from step to step: read 4.7e-3), and the 10-iteration solve (K14;
 # read 3.3e-5 on NVIDIA H100 80GB HBM3, 700.00 W)
 ELQR_F32_TOL, ELQR_F32_TRAJ_TOL, ELQR_F32_SOLVE_TOL = 1e-3, 1e-2, 1e-3
+# K14's float32 RK4s divide with PivotOps::div_moderate and take ChainOps'
+# sines (csrc/envs.cuh ExactChainOps), the step taken again with the
+# library's operations where a sine's argument passes 105615: held to the
+# plain version where the initial kff is of order 1e-33 from the zero state
+# (numerators and tangents below 2^-99, the division's scaled path) and
+# where the angle starts past 105615 (the retake; rollouts only, as the
+# sweeps from there turn NaN in the plain version too), so that both run on
+# the card every time.  (label, θ₀, step, kff scale, nb_iter)
+ELQR_EXACT_CASES = (("tiny numerators", 0.0, 0.0, 1e-33, 2), ("wide angles", 2e5, 1.0, 1.0, 0))
+N_ELQR_EXACT, T_ELQR_EXACT = 4, 10
 
 # The robust-GPS paths: K15/K16 at bench.py:669's fixed-point shape (T=100,
 # dims 4/2, batch 8 and 64, float32); the main path at the two configurations
@@ -1655,7 +1668,7 @@ def elqr_kernel_rows(card, launches, errs, plain_ms, operands, k14):
             "K12": ("K12 elqr_backward", 342, f"T={T} N={N}"),
             "K13": ("K13 elqr_rollout", 413, f"T={T} N={N}"),
             "K14": ("K14 elqr_solve", 607, f"T={T} N={N_ELQR_FUSED} nb_iter={ELQR_ITER}, "
-                    f"one block of {N_ELQR_FUSED} threads")}
+                    f"{N_ELQR_FUSED // 4} blocks of one warp, eight lanes an instance")}
     rows = []
     for k, (call, ops) in calls.items():
         reps = 5 if k == "K14" else 20
@@ -1751,6 +1764,15 @@ def elqr_phases(device, card, wrappers):
             (to_soa(out[0].K, N_ELQR_FUSED), to_soa(out[0].kff, N_ELQR_FUSED),
              to_soa(out[1], N_ELQR_FUSED), to_soa(out[2], N_ELQR_FUSED), out[3].T.contiguous()),
             ref, (0.0, umax, 0.0, 0.0, 0.0)))
+
+    # K14's exact-range cases, float32, against the plain version
+    for label, theta0, step, scale, nb_iter in ELQR_EXACT_CASES:
+        x0s, kff0 = elqr_inputs(N_ELQR_EXACT, T_ELQR_EXACT, 15, torch.float32, device, theta0,
+                                step)
+        log(f"K14 check: float32, {label}, N={N_ELQR_EXACT}, T={T_ELQR_EXACT}, "
+            f"nb_iter={nb_iter}, tolerance {ELQR_F32_SOLVE_TOL:.0e}")
+        check_k14(f"f32 {label}", env, to_soa(scale * kff0, N_ELQR_EXACT), x0s.T.contiguous(),
+                  nb_iter, ELQR_F32_SOLVE_TOL)
 
     # both kernel engines against the scan engine in float64
     n8 = N_ELQR_SCAN

@@ -23,25 +23,42 @@
 // Design: one thread block per solve or episode (batch 1, as on the TPU),
 // 128 threads.  The TPU kernel runs each phase on its 128 lanes; here each
 // phase runs on the block's threads: thread t expands step t, thread k runs
-// ladder trial k over the whole horizon, thread j rolls α_j out; one thread
-// decides between phases.  The phases hand over through a scratch buffer in
-// device memory (the wrapper allocates it; one block's working set stays in
-// the L1/L2 caches) and scalars in shared memory, with __syncthreads()
-// between them.  The expansion differentiates the EKF step with nested dual
-// numbers (dual.cuh): tangents over (μ, vec Σ, u) outside, and inside them
-// the Jacobians of the dynamics and the observation model that the EKF step
-// takes.  The belief cost is the quadratic form of every belief env, so its
-// expansion is written in closed form (the values autodiff gives exactly).
+// ladder trial k over the whole horizon, thread j rolls α_j out; between
+// phases the ladder's choice and g_norm (a quotient a lane, max_'s NaN rule
+// over the warp) and the accept test (an α a lane, the first acceptable one
+// by ballot) run on warp 0.  The phases hand over through a scratch in the
+// block's shared memory (dynamic, sized from T and the number of α; a
+// configuration too large for it keeps the wrapper's device buffer) and
+// scalars in static shared memory, with __syncthreads() between them.  The
+// expansion differentiates the EKF step with nested dual numbers (dual.cuh):
+// tangents over (μ, vec Σ, u) outside, and inside them the Jacobians of the
+// dynamics and the observation model that the EKF step takes.  The belief
+// cost is the quadratic form of every belief env, so its expansion is
+// written in closed form (the values autodiff gives exactly).  In float the
+// phases divide and take square roots with PivotOps (pivot.cuh: the
+// library's bits without its slow paths; an operand outside [2^-100, 2^100)
+// goes to an exact out-of-line division), f32_floor's tr/2 is tr·0.5; thread
+// 0's once-a-step filter keeps the library's operations.  Measured first
+// (PERF.md): the ladder and the rollouts were 89 % of an iteration;
+// the outputs are bit for bit those of the kernel that divided with the
+// library and kept its scratch in device memory.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "bwd_step.cuh"
 #include "dual.cuh"
+#include "pivot.cuh"
 
 namespace {
 
 constexpr int NL = 16;          // λ-ladder trials
 constexpr int THREADS = 128;    // ≥ T + 1, ≥ NL, ≥ the number of α
 constexpr int MAX_ALPHAS = 128;
+// The most dynamic shared memory the scratch may take (of the 227 KB a
+// block can have, beside the static Shared); a larger one stays in device
+// memory.
+constexpr size_t SMEM_MAX = 224 * 1024;
 
 }  // namespace
 
@@ -100,6 +117,51 @@ struct LightDark {
 
 namespace {
 
+// ---- how the kernels divide and take square roots ---------------------------------
+
+// The library's operations: float64, and thread 0's once-a-step filter.
+struct LibDiv {
+  template <typename T>
+  __device__ static __forceinline__ T div(const T& a, const T& b) { return a / b; }
+  template <typename T>
+  __device__ static __forceinline__ T sqrt(const T& a) { return sqrt_(a); }
+};
+
+// float on the chain: the same bits without the slow-path branches.
+//   - a / b: PivotOps::div, a / b's bits for every pair of floats; a dual's
+//     quotient keeps dual.cuh's tangents (a.d − q·b.d) · (1/b.v) with 1/b.v
+//     a PivotOps quotient too.
+//   - sqrt: PivotOps::sqrt, sqrtf's bits for every float; a dual's
+//     derivative factor 0.5/√a as 0.5 · PivotOps::rcp(√a), exact for every
+//     root of a float (no underflow or overflow).
+struct FastDiv {
+  __device__ static __forceinline__ float div(float a, float b) { return PivotOps::div(a, b); }
+  template <int N>
+  __device__ static __forceinline__ Dual<float, N> div(const Dual<float, N>& a,
+                                                       const Dual<float, N>& b) {
+    Dual<float, N> r;
+    r.v = PivotOps::div(a.v, b.v);
+    const float inv = PivotOps::div(1.0f, b.v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) * inv;
+    return r;
+  }
+  __device__ static __forceinline__ float sqrt(float a) { return PivotOps::sqrt(a); }
+  template <int N>
+  __device__ static __forceinline__ Dual<float, N> sqrt(const Dual<float, N>& a) {
+    Dual<float, N> r;
+    r.v = PivotOps::sqrt(a.v);
+    const float h = 0.5f * PivotOps::rcp(r.v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) r.d[i] = a.d[i] * h;
+    return r;
+  }
+};
+
+// The operations of a phase: FastDiv in float, the library's in float64.
+template <typename S>
+using PhaseOps = typename std::conditional<std::is_same<S, float>::value, FastDiv, LibDiv>::type;
+
 // ---- small linear algebra on (possibly dual) scalars --------------------------------
 
 // C = A Bᵀ for A (n, k), B (m, k).
@@ -118,20 +180,20 @@ __device__ __forceinline__ void mm_nt(const T (&A)[N][K], const T (&B)[M][K], T 
 
 // Unguarded Cholesky (pallas_bsp.py _chol_t): NaN entries for a non-PD input,
 // as jnp.linalg.cholesky flags it.
-template <typename T, int N>
-__device__ __forceinline__ void chol_t(const T (&M)[N][N], T (&L)[N][N]) {
+template <class Ops, typename T, int N>
+__device__ __forceinline__ void chol_t(const T (&M)[N][N], T (&L)[N][N], Ops& ops) {
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     T d = M[j][j];
 #pragma unroll
     for (int k = 0; k < j; ++k) d = d - L[j][k] * L[j][k];
-    L[j][j] = sqrt_(d);
+    L[j][j] = ops.sqrt(d);
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
       T r = M[i][j];
 #pragma unroll
       for (int k = 0; k < j; ++k) r = r - L[i][k] * L[j][k];
-      L[i][j] = r / L[j][j];
+      L[i][j] = ops.div(r, L[j][j]);
     }
 #pragma unroll
     for (int i = 0; i < j; ++i) L[i][j] = T(typename RealOf<T>::type(0));
@@ -140,22 +202,23 @@ __device__ __forceinline__ void chol_t(const T (&M)[N][N], T (&L)[N][N]) {
 
 // Solve (L Lᵀ) x = v by forward and back substitution with divisions
 // (pallas_bsp.py _chol_solve_vec).
-template <typename T, int N>
-__device__ __forceinline__ void chol_solve_t(const T (&L)[N][N], const T (&v)[N], T (&x)[N]) {
+template <class Ops, typename T, int N>
+__device__ __forceinline__ void chol_solve_t(const T (&L)[N][N], const T (&v)[N], T (&x)[N],
+                                             Ops& ops) {
   T y[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     T r = v[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) r = r - L[i][k] * y[k];
-    y[i] = r / L[i][i];
+    y[i] = ops.div(r, L[i][i]);
   }
 #pragma unroll
   for (int i = N - 1; i >= 0; --i) {
     T r = y[i];
 #pragma unroll
     for (int k = i + 1; k < N; ++k) r = r - L[k][i] * x[k];
-    x[i] = r / L[i][i];
+    x[i] = ops.div(r, L[i][i]);
   }
 }
 
@@ -174,23 +237,28 @@ __device__ __forceinline__ void symmetrize(T (&M)[N][N]) {
 }
 
 // The float32-only relative diagonal floor of core/ekf._psd_floor and
-// _inv: M + 1e-5 (tr M / n + 1e-12) I; nothing in float64.
-template <typename T, int N>
-__device__ __forceinline__ void f32_floor(T (&M)[N][N]) {
+// _inv: M + 1e-5 (tr M / n + 1e-12) I; nothing in float64.  For n a power
+// of two tr / n is tr · (1/n), the same bits for every float.
+template <class Ops, typename T, int N>
+__device__ __forceinline__ void f32_floor(T (&M)[N][N], Ops& ops) {
   using R = typename RealOf<T>::type;
   if (sizeof(R) != 4) return;
   T tr = M[0][0];
 #pragma unroll
   for (int i = 1; i < N; ++i) tr = tr + M[i][i];
-  const T scale = tr / R(N) + R(1e-12);
+  T scale;
+  if constexpr ((N & (N - 1)) == 0)
+    scale = tr * R(1.0 / N) + R(1e-12);
+  else
+    scale = ops.div(tr, T(R(N))) + R(1e-12);
   const T jit = R(1e-5) * scale;
 #pragma unroll
   for (int i = 0; i < N; ++i) M[i][i] = M[i][i] + jit;
 }
 
 // core/ekf._inv: symmetrize, the float32 jitter, inverse through Cholesky.
-template <typename T, int N>
-__device__ __forceinline__ void inv_psd(const T (&S_in)[N][N], T (&X)[N][N]) {
+template <class Ops, typename T, int N>
+__device__ __forceinline__ void inv_psd(const T (&S_in)[N][N], T (&X)[N][N], Ops& ops) {
   using R = typename RealOf<T>::type;
   T S[N][N], L[N][N];
 #pragma unroll
@@ -198,14 +266,14 @@ __device__ __forceinline__ void inv_psd(const T (&S_in)[N][N], T (&X)[N][N]) {
 #pragma unroll
     for (int j = 0; j < N; ++j) S[i][j] = S_in[i][j];
   symmetrize(S);
-  f32_floor(S);
-  chol_t(S, L);
+  f32_floor(S, ops);
+  chol_t(S, L, ops);
 #pragma unroll
   for (int c = 0; c < N; ++c) {
     T e[N], x[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) e[i] = T(R(i == c ? 1 : 0));
-    chol_solve_t(L, e, x);
+    chol_solve_t(L, e, x, ops);
 #pragma unroll
     for (int i = 0; i < N; ++i) X[i][c] = x[i];
   }
@@ -257,10 +325,10 @@ __device__ __forceinline__ void observe_jac(const T (&x)[Env::B], T (&y)[Env::DO
 }
 
 // Joseph-form update (I − KH) P (I − KH)ᵀ + K R Kᵀ, symmetrized and floored.
-template <typename T, int B, int DO>
+template <class Ops, typename T, int B, int DO>
 __device__ __forceinline__ void joseph(const T (&P)[B][B], const T (&K)[B][DO],
                                        const T (&H)[DO][B], const T (&Rn)[DO][DO],
-                                       T (&out)[B][B]) {
+                                       T (&out)[B][B], Ops& ops) {
   using R = typename RealOf<T>::type;
   T KH[B][B], I_KH[B][B], IP[B][B], IPI[B][B], KR[B][DO], KRK[B][B];
   mm(K, H, KH);
@@ -277,15 +345,15 @@ __device__ __forceinline__ void joseph(const T (&P)[B][B], const T (&K)[B][DO],
 #pragma unroll
     for (int j = 0; j < B; ++j) out[i][j] = IPI[i][j] + KRK[i][j];
   symmetrize(out);
-  f32_floor(out);
+  f32_floor(out, ops);
 }
 
 // core/ekf.belief_ekf_step: (f, W, Φ) of one EKF predict and gain step.
-template <class Env, typename T>
+template <class Env, class Ops, typename T>
 __device__ __forceinline__ void ekf_step(const BSPParams& p, const T (&mu)[Env::B],
                                          const T (&sig)[Env::B][Env::B], const T (&u)[Env::A],
                                          T (&f)[Env::B], T (&W)[Env::B][Env::B],
-                                         T (&phi)[Env::B][Env::B]) {
+                                         T (&phi)[Env::B][Env::B], Ops& ops) {
   using R = typename RealOf<T>::type;
   constexpr int B = Env::B, DO = Env::DO;
   T Am[B][B], y[DO], H[DO][B], Rn[DO][DO];
@@ -309,12 +377,12 @@ __device__ __forceinline__ void ekf_step(const BSPParams& p, const T (&mu)[Env::
   for (int i = 0; i < DO; ++i)
 #pragma unroll
     for (int j = 0; j < DO; ++j) Sm[i][j] = Sm[i][j] + Rn[i][j];
-  inv_psd(Sm, Sinv);
+  inv_psd(Sm, Sinv, ops);
   mm_nt(D, H, DH);
   mm(DH, Sinv, K);
   mm(K, H, KH);
   mm(KH, D, W);
-  joseph(D, K, H, Rn, phi);
+  joseph(D, K, H, Rn, phi, ops);
 }
 
 // core/ekf.EKF.innovate against the observation z.
@@ -332,7 +400,8 @@ __device__ __forceinline__ void ekf_innovate(const BSPParams& p, S (&mu)[Env::B]
   for (int i = 0; i < DO; ++i)
 #pragma unroll
     for (int j = 0; j < DO; ++j) Sm[i][j] = Sm[i][j] + Rn[i][j];
-  inv_psd(Sm, Sinv);
+  LibDiv lib;
+  inv_psd(Sm, Sinv, lib);
   mm_nt(cov, H, CH);
   mm(CH, Sinv, K);
 #pragma unroll
@@ -341,7 +410,7 @@ __device__ __forceinline__ void ekf_innovate(const BSPParams& p, S (&mu)[Env::B]
 #pragma unroll
   for (int i = 0; i < B; ++i) mu[i] = mu[i] + Ki[i];
   S out[B][B];
-  joseph(cov, K, H, Rn, out);
+  joseph(cov, K, H, Rn, out, lib);
 #pragma unroll
   for (int i = 0; i < B; ++i)
 #pragma unroll
@@ -354,7 +423,8 @@ __device__ __forceinline__ void noisy(const S (&mean)[N], S (&cov)[N][N], const 
                                       S (&out)[N]) {
   S L[N][N];
   symmetrize(cov);
-  chol_t(cov, L);
+  LibDiv lib;
+  chol_t(cov, L, lib);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     S s = L[i][0] * eps[0];
@@ -388,7 +458,8 @@ __device__ __forceinline__ S max_(S a, S b) { return (a != a || a > b) ? a : b; 
 template <typename S>
 __device__ __forceinline__ S min_(S a, S b) { return (a != a || a < b) ? a : b; }
 
-// Views of the global scratch (core/cuda_bsp.py _scratch_size).
+// Views of the scratch (core/cuda_bsp.py _scratch_size): the block's
+// shared memory where it fits, else the wrapper's buffer in device memory.
 template <class Env, typename S>
 struct Scratch {
   static constexpr int B = Env::B, A = Env::A, BB = B * B;
@@ -410,6 +481,15 @@ struct Scratch {
     mu = take(T1 * B); sig = take(T1 * BB); u = take(T * A); K = take(T * A * B);
     kff = take(T * A);
   }
+
+  // Scalars in all, as the constructor takes them.
+  static size_t size(int T, int nA) {
+    const size_t T1 = T + 1;
+    return T1 * (B * B + B + A * A + A + B * A + BB + B * B + B * A + 2 * BB * B + 2 * BB * BB +
+                 2 * BB * A) +
+           (size_t)NL * T * (A * B + A) + (size_t)nA * T1 * (B + BB + A) + T1 * (B + BB) +
+           (size_t)T * (A + A * B + A);
+  }
 };
 
 // The solve's scalars, in shared memory.
@@ -427,8 +507,9 @@ struct Shared {
 
 // ---- phase 1: the expansion of step t (thread t) -----------------------------------
 
-template <class Env, typename S>
-__device__ void expand_step(const BSPParams& p, const Scratch<Env, S>& sc, int t, int T) {
+template <class Env, class Ops, typename S>
+__device__ void expand_step(const BSPParams& p, const Scratch<Env, S>& sc, int t, int T,
+                            Ops& ops) {
   constexpr int B = Env::B, A = Env::A, BB = B * B, NZ = B + BB + A;
   // the belief cost's closed-form expansion (u = 0 at t = T)
   {
@@ -471,7 +552,7 @@ __device__ void expand_step(const BSPParams& p, const Scratch<Env, S>& sc, int t
     uu[j] = E(sc.u[t * A + j]);
     uu[j].d[B + BB + j] = S(1);
   }
-  ekf_step<Env>(p, m, sg, uu, f, W, phi);
+  ekf_step<Env>(p, m, sg, uu, f, W, phi, ops);
 #pragma unroll
   for (int i = 0; i < B; ++i) {
 #pragma unroll
@@ -536,9 +617,9 @@ __device__ __forceinline__ void load_mat(const S* M, S (&out)[R][C]) {
 }
 
 // The (S, s, τ) recursion at λ (pallas_bsp.py _ladder_backward, one trial).
-template <class Env, typename S>
+template <class Env, class Ops, typename S>
 __device__ void trial(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>& sh, int k,
-                      int T) {
+                      int T, Ops& ops) {
   constexpr int B = Env::B, A = Env::A, BB = B * B;
   S lam, dl_unused;
   ladder(p, sh.lam, sh.dlam, k, lam, dl_unused);
@@ -634,7 +715,7 @@ __device__ void trial(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>& 
     }
     symmetrize(D_reg);
     S L[A][A];
-    chol_t(D_reg, L);
+    chol_t(D_reg, L, ops);
     // a failed factorization: entry by entry, the identity's (bsp_backward's
     // where(isfinite(chol), chol, I))
     bool ok = true;
@@ -655,13 +736,13 @@ __device__ void trial(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>& 
       S v[A], x[A];
 #pragma unroll
       for (int i = 0; i < A; ++i) v[i] = E_reg[i][col];
-      chol_solve_t(L, v, x);
+      chol_solve_t(L, v, x, ops);
 #pragma unroll
       for (int i = 0; i < A; ++i) K[i][col] = -x[i];
     }
     {
       S x[A];
-      chol_solve_t(L, d, x);
+      chol_solve_t(L, d, x, ops);
 #pragma unroll
       for (int i = 0; i < A; ++i) kff[i] = -x[i];
     }
@@ -712,9 +793,10 @@ __device__ void trial(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>& 
 
 // ---- phase 3: the belief rollout of α_j (thread j) ---------------------------------
 
-template <class Env, typename S>
+template <class Env, class Ops, typename S>
 __device__ void rollout(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>& sh, int j,
-                        int T, const S* Kg, const S* kffg, const S* mu0, const S* sig0) {
+                        int T, const S* Kg, const S* kffg, const S* mu0, const S* sig0,
+                        Ops& ops) {
   constexpr int B = Env::B, A = Env::A, BB = B * B;
   const S alpha = S(p.alphas[j]);
   S mu[B], sig[B][B];
@@ -754,7 +836,7 @@ __device__ void rollout(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>
     ret = ret + belief_cost<Env>(p, mu, rsig + t * BB, u);
     if (t == T) break;
     S f[B], W[B][B], phi[B][B];
-    ekf_step<Env>(p, mu, sig, u, f, W, phi);
+    ekf_step<Env>(p, mu, sig, u, f, W, phi, ops);
 #pragma unroll
     for (int i = 0; i < B; ++i) {
       mu[i] = f[i];
@@ -779,11 +861,23 @@ __device__ void take_rollout(const Scratch<Env, S>& sc, int j, int T) {
 
 // ---- the solve (all threads of the block) ------------------------------------------
 
+// max_'s rule over warp 0's lanes: NaN where any lane holds NaN, else the
+// largest, whatever the order.
+template <typename S>
+__device__ __forceinline__ S warp_max(S m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const S o = __shfl_xor_sync(0xffffffffu, m, off);
+    m = m != m ? m : max_(o, m);
+  }
+  return m;
+}
+
 template <class Env, typename S>
 __device__ void solve_core(const BSPParams& p, const Scratch<Env, S>& sc, Shared<S>& sh,
                            const S* mu0, const S* sig0, S* trace) {
   constexpr int B = Env::B, A = Env::A;
-  const int tid = threadIdx.x, T = p.T, nA = p.nA;
+  const int tid = threadIdx.x, lane = tid & 31, T = p.T, nA = p.nA;
 
   // the initial trajectory: zero gains and kff, reference mean μ₀ at t = 0
   for (int i = tid; i < (T + 1) * B; i += blockDim.x) sc.mu[i] = i < B ? mu0[i] : S(0);
@@ -793,7 +887,8 @@ __device__ void solve_core(const BSPParams& p, const Scratch<Env, S>& sc, Shared
   }
   for (int i = tid; i < T * A * B; i += blockDim.x) sc.K[i] = S(0);
   __syncthreads();
-  if (tid < nA) rollout(p, sc, sh, tid, T, sc.K, sc.kff, mu0, sig0);
+  PhaseOps<S> ops;
+  if (tid < nA) rollout<Env>(p, sc, sh, tid, T, sc.K, sc.kff, mu0, sig0, ops);
   __syncthreads();
   if (tid == 0) {
     int idx = 0;
@@ -815,12 +910,13 @@ __device__ void solve_core(const BSPParams& p, const Scratch<Env, S>& sc, Shared
       continue;
     }
     // 1. expansion
-    if (tid <= T) expand_step(p, sc, tid, T);
+    if (tid <= T) expand_step<Env>(p, sc, tid, T, ops);
     __syncthreads();
     // 2. the λ ladder
-    if (tid < NL) trial(p, sc, sh, tid, T);
+    if (tid < NL) trial<Env>(p, sc, sh, tid, T, ops);
     __syncthreads();
-    if (tid == 0) {
+    // the ladder's choice on every lane of warp 0, g_norm a quotient a lane
+    if (tid < 32) {
       S lams[NL + 1], dls[NL + 1];
       lams[0] = sh.lam;
       dls[0] = sh.dlam;
@@ -832,56 +928,69 @@ __device__ void solve_core(const BSPParams& p, const Scratch<Env, S>& sc, Shared
       for (int k = NL - 1; k >= 0; --k)
         if (!sh.bad[k] || lams[k + 1] > S(p.max_lmbda)) idx = k;
       const bool div = sh.bad[idx] && lams[idx] <= S(p.max_lmbda);
-      sh.trial = idx;
-      sh.div = div;
-      sh.lam_out = div ? lams[idx + 1] : lams[idx];
-      sh.dl_out = div ? dls[idx + 1] : dls[idx];
-      sh.dS0 = sh.ds0[idx];
-      sh.dS1 = sh.ds1[idx];
+      const S lam_out = div ? lams[idx + 1] : lams[idx];
       // g_norm = mean_j max_t |kff| / (|uref| + 1)
       const S* kff = sc.kfftr + (size_t)idx * T * A;
       S g = S(0);
       for (int j = 0; j < A; ++j) {
         S m = -INFINITY;
-        for (int t = 0; t < T; ++t) m = max_(fabs(kff[t * A + j]) / (fabs(sc.u[t * A + j]) + S(1)), m);
-        g = g + m;
+        for (int t = lane; t < T; t += 32)
+          m = max_(fabs(kff[t * A + j]) / (fabs(sc.u[t * A + j]) + S(1)), m);
+        g = g + warp_max(m);
       }
       g = g / S(A);
-      sh.grad_done = (g < S(p.tolgrad)) && (sh.lam_out < S(1e-5));
+      if (lane == 0) {
+        sh.trial = idx;
+        sh.div = div;
+        sh.lam_out = lam_out;
+        sh.dl_out = div ? dls[idx + 1] : dls[idx];
+        sh.dS0 = sh.ds0[idx];
+        sh.dS1 = sh.ds1[idx];
+        sh.grad_done = (g < S(p.tolgrad)) && (lam_out < S(1e-5));
+      }
     }
     __syncthreads();
     // 3. rollouts from the reference's first belief under the trial's gains
     const S* Kg = sc.Ktr + (size_t)sh.trial * T * A * B;
     const S* kffg = sc.kfftr + (size_t)sh.trial * T * A;
-    if (tid < nA) rollout(p, sc, sh, tid, T, Kg, kffg, sc.mu, sc.sig);
+    if (tid < nA) rollout<Env>(p, sc, sh, tid, T, Kg, kffg, sc.mu, sc.sig, ops);
     __syncthreads();
-    // 4. accept or reject
-    if (tid == 0) {
+    // 4. accept or reject: the first acceptable α (a candidate a lane, the
+    // smallest j by ballot), then lane 0 decides
+    if (tid < 32) {
       int idx = -1;
-      for (int j = nA - 1; j >= 0; --j) {
-        const S al = S(p.alphas[j]);
-        const S expected = (S(-1) * al) * (sh.dS0 + al * sh.dS1);
-        const S imp = (sh.last_return - sh.ret[j]) / expected;
-        if (imp > S(p.min_imp) && !sh.div && finite_(sh.ret[j])) idx = j;
+      for (int j0 = 0; j0 < nA && idx < 0; j0 += 32) {
+        const int j = j0 + lane;
+        bool ok = false;
+        if (j < nA) {
+          const S al = S(p.alphas[j]);
+          const S expected = (S(-1) * al) * (sh.dS0 + al * sh.dS1);
+          const S imp = (sh.last_return - sh.ret[j]) / expected;
+          ok = imp > S(p.min_imp) && !sh.div && finite_(sh.ret[j]);
+        }
+        const unsigned hit = __ballot_sync(0xffffffffu, ok);
+        if (hit) idx = j0 + __ffs(hit) - 1;
       }
-      const bool any_ok = idx >= 0;
-      if (!any_ok) idx = 0;
-      const S ret_idx = sh.ret[idx];
-      const S dret_idx = sh.last_return - ret_idx;
-      const S mult = S(p.mult_lmbda);
-      const S dl_acc = min_(sh.dl_out / mult, S(1) / mult);
-      const S lam_acc = sh.lam_out * dl_acc * (sh.lam_out > S(p.min_lmbda) ? S(1) : S(0));
-      const S dl_rej = max_(sh.dl_out * mult, mult);
-      const S lam_rej = max_(sh.lam_out * dl_rej, S(p.min_lmbda));
-      const bool take = any_ok && !sh.grad_done;
-      sh.take = take;
-      sh.alpha = idx;
-      sh.lam = take ? lam_acc : lam_rej;
-      sh.dlam = take ? dl_acc : dl_rej;
-      if (take) sh.last_return = ret_idx;
-      sh.done = sh.grad_done || (take && dret_idx < S(p.tolfun)) ||
-                (!any_ok && lam_rej > S(p.max_lmbda));
-      if (trace != nullptr) trace[it] = sh.last_return;
+      if (lane == 0) {
+        const bool any_ok = idx >= 0;
+        if (!any_ok) idx = 0;
+        const S ret_idx = sh.ret[idx];
+        const S dret_idx = sh.last_return - ret_idx;
+        const S mult = S(p.mult_lmbda);
+        const S dl_acc = min_(sh.dl_out / mult, S(1) / mult);
+        const S lam_acc = sh.lam_out * dl_acc * (sh.lam_out > S(p.min_lmbda) ? S(1) : S(0));
+        const S dl_rej = max_(sh.dl_out * mult, mult);
+        const S lam_rej = max_(sh.lam_out * dl_rej, S(p.min_lmbda));
+        const bool take = any_ok && !sh.grad_done;
+        sh.take = take;
+        sh.alpha = idx;
+        sh.lam = take ? lam_acc : lam_rej;
+        sh.dlam = take ? dl_acc : dl_rej;
+        if (take) sh.last_return = ret_idx;
+        sh.done = sh.grad_done || (take && dret_idx < S(p.tolfun)) ||
+                  (!any_ok && lam_rej > S(p.max_lmbda));
+        if (trace != nullptr) trace[it] = sh.last_return;
+      }
     }
     __syncthreads();
     if (sh.take) {
@@ -899,10 +1008,12 @@ template <class Env, typename S>
 __global__ void __launch_bounds__(THREADS) bsp_solve_kernel(
     BSPParams p, const S* __restrict__ mu0, const S* __restrict__ sig0, S* __restrict__ mu_out,
     S* __restrict__ sig_out, S* __restrict__ u_out, S* __restrict__ K_out,
-    S* __restrict__ kff_out, S* __restrict__ misc, S* __restrict__ trace, S* scratch) {
+    S* __restrict__ kff_out, S* __restrict__ misc, S* __restrict__ trace, S* scratch,
+    int in_smem) {
   constexpr int B = Env::B, A = Env::A, BB = B * B;
+  extern __shared__ __align__(16) unsigned char bsp_smem[];
   __shared__ Shared<S> sh;
-  const Scratch<Env, S> sc(scratch, p.T, p.nA);
+  const Scratch<Env, S> sc(in_smem ? reinterpret_cast<S*>(bsp_smem) : scratch, p.T, p.nA);
   solve_core(p, sc, sh, mu0, sig0, trace);
   const int tid = threadIdx.x, T = p.T;
   for (int i = tid; i < (T + 1) * B; i += blockDim.x) mu_out[i] = sc.mu[i];
@@ -925,11 +1036,12 @@ __global__ void __launch_bounds__(THREADS) bsp_episode_kernel(
     BSPParams p, const S* __restrict__ x0, const S* __restrict__ eps0,
     const S* __restrict__ eps_dyn, const S* __restrict__ eps_obs, S* __restrict__ xs,
     S* __restrict__ mus, S* __restrict__ sigmas, S* __restrict__ us, S* __restrict__ cs,
-    S* scratch, int steps) {
+    S* scratch, int steps, int in_smem) {
   constexpr int B = Env::B, A = Env::A, BB = B * B, DO = Env::DO;
+  extern __shared__ __align__(16) unsigned char bsp_smem[];
   __shared__ Shared<S> sh;
   __shared__ S x[B], mu_b[B], cov_b[BB];
-  const Scratch<Env, S> sc(scratch, p.T, p.nA);
+  const Scratch<Env, S> sc(in_smem ? reinterpret_cast<S*>(bsp_smem) : scratch, p.T, p.nA);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -1024,21 +1136,38 @@ __global__ void __launch_bounds__(THREADS) bsp_episode_kernel(
 
 namespace {
 
+// The scratch's bytes in dynamic shared memory, with the kernel's limit
+// raised to them, or 0 (the device-memory scratch) where it does not fit.
+template <class Env, typename S, typename Kernel>
+int scratch_smem(Kernel kernel, const BSPParams& p, size_t& bytes) {
+  bytes = Scratch<Env, S>::size(p.T, p.nA) * sizeof(S);
+  if (bytes > SMEM_MAX) bytes = 0;
+  if (bytes == 0) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
 template <class Env, typename S>
 int launch_solve(const BSPParams& p, const void* const* in, void* const* out, void* scratch,
                  cudaStream_t s) {
-  bsp_solve_kernel<Env, S><<<1, THREADS, 0, s>>>(
+  size_t bytes;
+  const int err = scratch_smem<Env, S>(bsp_solve_kernel<Env, S>, p, bytes);
+  if (err) return err;
+  bsp_solve_kernel<Env, S><<<1, THREADS, bytes, s>>>(
       p, (const S*)in[0], (const S*)in[1], (S*)out[0], (S*)out[1], (S*)out[2], (S*)out[3],
-      (S*)out[4], (S*)out[5], (S*)out[6], (S*)scratch);
+      (S*)out[4], (S*)out[5], (S*)out[6], (S*)scratch, bytes > 0);
   return (int)cudaGetLastError();
 }
 
 template <class Env, typename S>
 int launch_episode(const BSPParams& p, const void* const* in, void* const* out, void* scratch,
                    int steps, cudaStream_t s) {
-  bsp_episode_kernel<Env, S><<<1, THREADS, 0, s>>>(
+  size_t bytes;
+  const int err = scratch_smem<Env, S>(bsp_episode_kernel<Env, S>, p, bytes);
+  if (err) return err;
+  bsp_episode_kernel<Env, S><<<1, THREADS, bytes, s>>>(
       p, (const S*)in[0], (const S*)in[1], (const S*)in[2], (const S*)in[3], (S*)out[0],
-      (S*)out[1], (S*)out[2], (S*)out[3], (S*)out[4], (S*)scratch, steps);
+      (S*)out[1], (S*)out[2], (S*)out[3], (S*)out[4], (S*)scratch, steps, bytes > 0);
   return (int)cudaGetLastError();
 }
 

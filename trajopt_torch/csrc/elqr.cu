@@ -21,64 +21,136 @@
 // chain of thousands of dependent instructions on one thread, so the time is
 // T times one step's latency, as for K1.
 //
-// Design, right first: one thread per instance (blocks of 32 for the sweeps,
-// one block of up to 128 for the solve, as the TPU's lane block; beyond 128
-// instances the solve runs several blocks, which share nothing).  Streams are
-// structure of arrays with time leading, (T(+1), entries, N), coalesced across
-// instances; the come and go values keep their boundary rows in place
-// (comeV₀ = 1e-16·I at row 0, the terminal go values at row T).  The value
-// carry stays in registers.  A, B and c of the inverse RK4 (K11) and the
-// forward RK4 (K12) are the tangents of one dual-number evaluation with dx+du
-// tangents (dual.cuh), which carries jnp.clip's ½ slope at a bound.  The cost
-// quadratization is closed form for the base feature-goal cost at u_last = 0,
-// a = 1 (pallas_elqr.py:99-143): Cxx = JᵀGJ, cx = 2JᵀG(z₀−g) − 2Cxx·x,
-// Cuu = diag(uw), Cxu = cu = 0, J from a dual evaluation of the features.
-// Inverses are partial-pivoting Gauss–Jordan (gj_inv.cuh); comeV and goV are
-// symmetrized as in the TPU kernels.  The solve keeps its (T+1)-row working
-// streams in a device scratch that the wrapper allocates.  Every small sum
-// runs in the order of the TPU kernel (index 0 first) and the build uses
-// -fmad=false, so the float64 build agrees with the plain versions
-// (core/cuda_elqr.py) to rounding.
+// Design: one thread per instance in the sweeps (blocks of 32) and in the
+// float64 solve.  Streams are structure of arrays with time leading,
+// (T(+1), entries, N), coalesced across instances; the come and go values
+// keep their boundary rows in place (comeV₀ = 1e-16·I at row 0, the terminal
+// go values at row T).  The value carry stays in registers.  A, B and c of
+// the inverse RK4 (K11) and the forward RK4 (K12) are the tangents of one
+// dual-number evaluation with dx+du tangents (dual.cuh), which carries
+// jnp.clip's ½ slope at a bound.  The cost quadratization is closed form for
+// the base feature-goal cost at u_last = 0, a = 1 (pallas_elqr.py:99-143):
+// Cxx = JᵀGJ, cx = 2JᵀG(z₀−g) − 2Cxx·x, Cuu = diag(uw), Cxu = cu = 0, J from
+// a dual evaluation of the features.  Inverses are partial-pivoting
+// Gauss–Jordan (gj_inv.cuh); comeV and goV are symmetrized as in the TPU
+// kernels.  The solve keeps its (T+1)-row working streams in a device scratch
+// that the wrapper allocates.  Every small sum runs in the order of the TPU
+// kernel (index 0 first) and the build uses -fmad=false, so the float64
+// build agrees with the plain versions (core/cuda_elqr.py) to rounding.
+//
+// K14's float build, for Hopper.  Measured first (PERF.md): the two
+// RK4s were 86 % of a sweep step, each a chain of library divisions and
+// sines; the trajectories settle on the goal, where the ODE's numerators
+// are rounding residue down to subnormals and every such division takes the
+// library's slow path (about 500 cycles against 45).  Its ODE now divides
+// with PivotOps::div_moderate (pivot.cuh: a / b's bits for every float
+// numerator over the ODE's divisors, without a branch) and takes ChainOps'
+// sines (a step whose angle passes 105615 is taken again with the library's
+// operations), and the linearization's five tangents go over the lanes: a
+// group of eight lanes per instance, four instances a warp, one warp a block
+// (N=64 on 16 SMs), lane k evaluating the value and tangent k alone (the
+// same operations as tangent k of the five-tangent dual), the Jacobian's
+// columns gathered by shuffles.  Everything else runs on every lane of the
+// group alike, which writes the same values to the same places; lanes past
+// the last instance repeat it.  The outputs are bit for bit those of the
+// one-thread, library-operation kernel (PERF.md).
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "bwd_step.cuh"
 #include "envs.cuh"
 #include "gj_inv.cuh"
 
 constexpr int ELQR_SWEEP_THREADS = 32;
-constexpr int ELQR_SOLVE_THREADS = 128;
+constexpr int ELQR_SOLVE_THREADS = 32;
+// K14's float build: the lanes of a group share one instance, lane k
+// carrying the linearization's tangent k (k ≥ dx + du: a zero tangent).
+constexpr int ELQR_GROUP = 8;
+
+// The lanes given to one instance of K14.
+template <typename S>
+__host__ __device__ constexpr int group_lanes() {
+  return std::is_same<S, float>::value ? ELQR_GROUP : 1;
+}
 
 // Element (t, e) of a (rows, E, N) stream for instance n.
 #define AT(ptr, t, E, e) (ptr)[((size_t)(t) * (E) + (e)) * np + n]
 
+// One RK4 step of the ODE (Backward: the inverse dynamics) on plain or dual
+// scalars.  Fast (K14's float build): ExactChainOps (envs.cuh), the step
+// taken again with the library's operations where a sine's argument left
+// ChainOps' range, so the bits are the library's either way; otherwise
+// (K11-K13, float64) the library's operations.
+template <class Env, bool Backward, bool Fast, typename T>
+__device__ __forceinline__ void rk4(const EnvParams& p, const T (&x)[Env::DX],
+                                    const T (&u)[Env::DU], T (&xn)[Env::DX]) {
+  if constexpr (Fast && std::is_same<typename RealOf<T>::type, float>::value) {
+    ExactChainOps fast;
+    rk4_step<Env, Backward>(p, x, u, xn, fast);
+    if (!fast.wide) return;
+  }
+  LibOps lib;
+  rk4_step<Env, Backward>(p, x, u, xn, lib);
+}
+
 // The affine model f(ξ, ν) ≈ Aξ + Bν + c about (x, u) of the dynamics
 // (Inverse false) or the inverse dynamics (Inverse true):
 // c = (f(x, u) − Ax) − Bu (pallas_elqr.py _tile_lin).
-template <class Env, bool Inverse, typename S>
+// With Fast in float (K14) the tangents go over the lanes of the instance's
+// group: lane k evaluates the value and tangent k alone (Dual<S, 1>, the
+// same operations as tangent k of the five-tangent dual, value likewise), and
+// the columns come back by shuffles; every lane of the warp takes part.
+template <class Env, bool Inverse, bool Fast, typename S>
 __device__ __forceinline__ void lin_about(const EnvParams& p, const S (&x)[Env::DX],
                                           const S (&u)[Env::DU], S (&A)[Env::DX][Env::DX],
                                           S (&B)[Env::DX][Env::DU], S (&c)[Env::DX]) {
   constexpr int DX = Env::DX, DU = Env::DU, NT = DX + DU;
-  using D = Dual<S, NT>;
-  D xd[DX], ud[DU], fd[DX];
+  S f[DX];
+  if constexpr (Fast && group_lanes<S>() > 1) {
+    static_assert(NT <= ELQR_GROUP, "one lane per tangent");
+    using D = Dual<S, 1>;
+    const int k = threadIdx.x % ELQR_GROUP, base = threadIdx.x - k;
+    D xd[DX], ud[DU], fd[DX];
 #pragma unroll
-  for (int i = 0; i < DX; ++i) { xd[i] = D(x[i]); xd[i].d[i] = S(1); }
+    for (int i = 0; i < DX; ++i) { xd[i] = D(x[i]); xd[i].d[0] = k == i ? S(1) : S(0); }
 #pragma unroll
-  for (int j = 0; j < DU; ++j) { ud[j] = D(u[j]); ud[j].d[DX + j] = S(1); }
-  rk4_step<Env, Inverse>(p, xd, ud, fd);
+    for (int j = 0; j < DU; ++j) { ud[j] = D(u[j]); ud[j].d[0] = k == DX + j ? S(1) : S(0); }
+    rk4<Env, Inverse, Fast>(p, xd, ud, fd);
+#pragma unroll
+    for (int i = 0; i < DX; ++i) {
+      f[i] = fd[i].v;
+#pragma unroll
+      for (int kk = 0; kk < DX; ++kk) A[i][kk] = __shfl_sync(0xffffffffu, fd[i].d[0], base + kk);
+#pragma unroll
+      for (int j = 0; j < DU; ++j) B[i][j] = __shfl_sync(0xffffffffu, fd[i].d[0], base + DX + j);
+    }
+  } else {
+    using D = Dual<S, NT>;
+    D xd[DX], ud[DU], fd[DX];
+#pragma unroll
+    for (int i = 0; i < DX; ++i) { xd[i] = D(x[i]); xd[i].d[i] = S(1); }
+#pragma unroll
+    for (int j = 0; j < DU; ++j) { ud[j] = D(u[j]); ud[j].d[DX + j] = S(1); }
+    rk4<Env, Inverse, Fast>(p, xd, ud, fd);
+#pragma unroll
+    for (int i = 0; i < DX; ++i) {
+      f[i] = fd[i].v;
+#pragma unroll
+      for (int kk = 0; kk < DX; ++kk) A[i][kk] = fd[i].d[kk];
+#pragma unroll
+      for (int j = 0; j < DU; ++j) B[i][j] = fd[i].d[DX + j];
+    }
+  }
 #pragma unroll
   for (int i = 0; i < DX; ++i) {
-#pragma unroll
-    for (int k = 0; k < DX; ++k) A[i][k] = fd[i].d[k];
-#pragma unroll
-    for (int j = 0; j < DU; ++j) B[i][j] = fd[i].d[DX + j];
     S ax = A[i][0] * x[0];
 #pragma unroll
     for (int k = 1; k < DX; ++k) ax = ax + A[i][k] * x[k];
     S bu = B[i][0] * u[0];
 #pragma unroll
     for (int j = 1; j < DU; ++j) bu = bu + B[i][j] * u[j];
-    c[i] = (fd[i].v - ax) - bu;
+    c[i] = (f[i] - ax) - bu;
   }
 }
 
@@ -198,7 +270,7 @@ __device__ __forceinline__ void gains_and_value(const S (&Qxx)[DX][DX], const S 
 // row (K, kff), the go values one step later (goVn, govn); carry: the state
 // x and the come value (V, v, v0) at t, replaced by those at t+1.  Out: the
 // inverse controller (iK, ikff).
-template <class Env, typename S>
+template <class Env, bool Fast, typename S>
 __device__ __forceinline__ void forward_step(
     const EnvParams& p, const S (&K)[Env::DU][Env::DX], const S (&kff)[Env::DU],
     const S (&goVn)[Env::DX][Env::DX], const S (&govn)[Env::DX], S (&x)[Env::DX],
@@ -212,9 +284,9 @@ __device__ __forceinline__ void forward_step(
 #pragma unroll
     for (int j = 0; j < DU; ++j) u[j] = kff[j] + Kx[j];
   }
-  dynamics<Env>(p, x, u, xn);
+  rk4<Env, false, Fast>(p, x, u, xn);
   S A[DX][DX], B[DX][DU], c[DX], Cxx[DX][DX], cx[DX], c0;
-  lin_about<Env, true>(p, xn, u, A, B, c);
+  lin_about<Env, true, Fast>(p, xn, u, A, B, c);
   quad_cost<Env>(p, x, u, Cxx, cx, c0);
 
   S M[DX][DX];
@@ -259,7 +331,7 @@ __device__ __forceinline__ void forward_step(
 // controller row (iK, ikff), the come values at t (comeV, comev); carry: the
 // state x and the go value (V, v, v0) at t+1, replaced by those at t.  Out:
 // the controller (K, kff).
-template <class Env, typename S>
+template <class Env, bool Fast, typename S>
 __device__ __forceinline__ void backward_step(
     const EnvParams& p, const S (&iK)[Env::DU][Env::DX], const S (&ikff)[Env::DU],
     const S (&comeV)[Env::DX][Env::DX], const S (&comev)[Env::DX], S (&x)[Env::DX],
@@ -273,9 +345,9 @@ __device__ __forceinline__ void backward_step(
 #pragma unroll
     for (int j = 0; j < DU; ++j) u[j] = ikff[j] + Kx[j];
   }
-  inverse_dynamics<Env>(p, x, u, xp);
+  rk4<Env, true, Fast>(p, x, u, xp);
   S A[DX][DX], B[DX][DU], c[DX], Cxx[DX][DX], cx[DX], c0;
-  lin_about<Env, false>(p, xp, u, A, B, c);
+  lin_about<Env, false, Fast>(p, xp, u, A, B, c);
   quad_cost<Env>(p, xp, u, Cxx, cx, c0);
 
   S Qxx[DX][DX], Quu[DU][DU], Qux[DU][DX], qx[DX], qu[DU];
@@ -364,7 +436,7 @@ __device__ __forceinline__ void store_vec(S* __restrict__ s, int t, size_t np, i
 // The forward sweep over t = 0 … T−1 from the state x: reads K, kff (rows t)
 // and goV, gov (rows t+1); writes iK, ikff (rows t) and comeV, comev (rows
 // 0 … T, row 0 the initial 1e-16·I and 0), comev0 when given.
-template <class Env, typename S>
+template <class Env, bool Fast, typename S>
 __device__ __forceinline__ void forward_sweep(const EnvParams& p, const S* K, const S* kff,
                                               const S* goV, const S* gov, S* iK, S* ikff,
                                               S* comeV, S* comev, S* comev0, S (&x)[Env::DX],
@@ -386,7 +458,7 @@ __device__ __forceinline__ void forward_sweep(const EnvParams& p, const S* K, co
     load_vec(kff, t, np, n, kt);
     load_mat(goV, t + 1, np, n, goVn);
     load_vec(gov, t + 1, np, n, govn);
-    forward_step<Env>(p, Kt, kt, goVn, govn, x, V, v, v0, iKt, ikt);
+    forward_step<Env, Fast>(p, Kt, kt, goVn, govn, x, V, v, v0, iKt, ikt);
     store_mat(iK, t, np, n, iKt);
     store_vec(ikff, t, np, n, ikt);
     store_mat(comeV, t + 1, np, n, V);
@@ -398,7 +470,7 @@ __device__ __forceinline__ void forward_sweep(const EnvParams& p, const S* K, co
 // The terminal step and the backward sweep over t = T−1 … 0 from the state x:
 // reads iK, ikff (rows t) and comeV, comev (rows 0 … T); writes K, kff (rows
 // t) and goV, gov (rows 0 … T, row T the terminal value), gov0 when given.
-template <class Env, typename S>
+template <class Env, bool Fast, typename S>
 __device__ __forceinline__ void backward_sweep(const EnvParams& p, const S* iK, const S* ikff,
                                                const S* comeV, const S* comev, S* K, S* kff,
                                                S* goV, S* gov, S* gov0, S (&x)[Env::DX],
@@ -420,7 +492,7 @@ __device__ __forceinline__ void backward_sweep(const EnvParams& p, const S* iK, 
     load_vec(ikff, t, np, n, ikt);
     load_mat(comeV, t, np, n, cV);
     load_vec(comev, t, np, n, cv);
-    backward_step<Env>(p, iKt, ikt, cV, cv, x, V, v, v0, Kt, kt);
+    backward_step<Env, Fast>(p, iKt, ikt, cV, cv, x, V, v, v0, Kt, kt);
     store_mat(K, t, np, n, Kt);
     store_vec(kff, t, np, n, kt);
     store_mat(goV, t, np, n, V);
@@ -432,7 +504,7 @@ __device__ __forceinline__ void backward_sweep(const EnvParams& p, const S* iK, 
 // The evaluation rollout u = kff + Kx from x0 (pallas_elqr.py
 // _rollout_kernel): the stage cost on the raw action (u_last = 0, a = 1),
 // the dynamics clip inside; stores the states and actions when xs is given.
-template <class Env, typename S>
+template <class Env, bool Fast, typename S>
 __device__ __forceinline__ S rollout(const EnvParams& p, const S* K, const S* kff,
                                      const S (&x0)[Env::DX], S* xs, S* us, int T, size_t np,
                                      int n) {
@@ -453,7 +525,7 @@ __device__ __forceinline__ S rollout(const EnvParams& p, const S* K, const S* kf
       store_vec(xs, t, np, n, x);
       store_vec(us, t, np, n, u);
     }
-    dynamics<Env>(p, x, u, xn);
+    rk4<Env, false, Fast>(p, x, u, xn);
 #pragma unroll
     for (int i = 0; i < DX; ++i) x[i] = xn[i];
   }
@@ -473,7 +545,7 @@ __global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_forward_kernel(
   const size_t np = N;
   S x[Env::DX];
   load_vec(x0, 0, np, n, x);
-  forward_sweep<Env>(p, K, kff, goV, gov, iK, ikff, comeV, comev, comev0, x, T, np, n);
+  forward_sweep<Env, false>(p, K, kff, goV, gov, iK, ikff, comeV, comev, comev0, x, T, np, n);
   store_vec(xout, 0, np, n, x);
 }
 
@@ -488,7 +560,7 @@ __global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_backward_kernel(
   const size_t np = N;
   S x[Env::DX];
   load_vec(xin, 0, np, n, x);
-  backward_sweep<Env>(p, iK, ikff, comeV, comev, K, kff, goV, gov, gov0, x, T, np, n);
+  backward_sweep<Env, false>(p, iK, ikff, comeV, comev, K, kff, goV, gov, gov0, x, T, np, n);
   store_vec(xout, 0, np, n, x);
 }
 
@@ -501,7 +573,7 @@ __global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_rollout_kernel(
   const size_t np = N;
   S x[Env::DX];
   load_vec(x0, 0, np, n, x);
-  ret[n] = rollout<Env>(p, K, kff, x, xs, us, T, np, n);
+  ret[n] = rollout<Env, false>(p, K, kff, x, xs, us, T, np, n);
 }
 
 // The whole solve (pallas_elqr.py _solve_kernel): K = 0 and kff = kff0, the
@@ -515,9 +587,13 @@ __global__ void __launch_bounds__(ELQR_SOLVE_THREADS) elqr_solve_kernel(
     EnvParams p, const S* __restrict__ kff0, const S* __restrict__ x0, S* __restrict__ K,
     S* __restrict__ kff, S* __restrict__ xs, S* __restrict__ us, S* __restrict__ rets,
     S* __restrict__ scratch, int T, int N, int nb_iter) {
-  constexpr int DX = Env::DX, DU = Env::DU;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  constexpr int DX = Env::DX, DU = Env::DU, G = group_lanes<S>();
+  // a group of G lanes per instance; in float the lanes past the last
+  // instance repeat it (every lane joins the shuffles), and the lanes of a
+  // group write the same values to the same places
+  int n = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (G == 1 && n >= N) return;
+  n = n < N ? n : N - 1;
   const size_t np = N;
   S* iK = scratch;
   S* ikff = iK + (size_t)T * DU * DX * np;
@@ -540,16 +616,18 @@ __global__ void __launch_bounds__(ELQR_SOLVE_THREADS) elqr_solve_kernel(
   }
   S xinit[DX], x[DX];
   load_vec(x0, 0, np, n, xinit);
-  AT(rets, 0, 1, 0) = rollout<Env>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
+  AT(rets, 0, 1, 0) = rollout<Env, true>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
 #pragma unroll
   for (int i = 0; i < DX; ++i) x[i] = xinit[i];
   for (int it = 0; it < nb_iter; ++it) {
-    forward_sweep<Env>(p, K, kff, goV, gov, iK, ikff, comeV, comev, (S*)nullptr, x, T, np, n);
-    backward_sweep<Env>(p, iK, ikff, comeV, comev, K, kff, goV, gov, (S*)nullptr, x, T, np, n);
+    forward_sweep<Env, true>(p, K, kff, goV, gov, iK, ikff, comeV, comev, (S*)nullptr, x, T, np,
+                             n);
+    backward_sweep<Env, true>(p, iK, ikff, comeV, comev, K, kff, goV, gov, (S*)nullptr, x, T, np,
+                              n);
     AT(rets, it + 1, 1, 0) =
-        rollout<Env>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
+        rollout<Env, true>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
   }
-  rollout<Env>(p, K, kff, xinit, xs, us, T, np, n);
+  rollout<Env, true>(p, K, kff, xinit, xs, us, T, np, n);
 }
 
 #undef AT
@@ -573,9 +651,10 @@ static int launch(int which, const EnvParams& p, const void* const* a, const int
     elqr_rollout_kernel<S, Env><<<blocks_of(N, sweep), sweep, 0, s>>>(
         p, (const S*)a[0], (const S*)a[1], (const S*)a[2], (S*)a[3], (S*)a[4], (S*)a[5], T, N);
   } else {
-    // one block of up to 128 threads per 128 instances (warps whole)
-    const int threads = N >= ELQR_SOLVE_THREADS ? ELQR_SOLVE_THREADS : (N + 31) / 32 * 32;
-    elqr_solve_kernel<S, Env><<<blocks_of(N, threads), threads, 0, s>>>(
+    // one warp a block, 32 / G instances a warp, so that the chains of a
+    // batch run on separate SMs
+    const int threads = ELQR_SOLVE_THREADS, blocks = blocks_of(N * group_lanes<S>(), threads);
+    elqr_solve_kernel<S, Env><<<blocks, threads, 0, s>>>(
         p, (const S*)a[0], (const S*)a[1], (S*)a[2], (S*)a[3], (S*)a[4], (S*)a[5], (S*)a[6],
         (S*)a[7], T, N, ints[2]);
   }
