@@ -12,7 +12,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    batch that is not a multiple of 32 and saturated actions, and K1-K4 again
    at T=45, N=50 (neither a whole number of their 16-step chunks nor of
    their 16-instance groups), K1/K4 for both reg values, K2/K3 for 11 and 3
-   α candidates (K2 takes 6 a block); float32 at the main path's shape
+   α candidates (K2 takes 6 a block); K2/K3 in float32 bit for bit against
+   their plain versions on the CPU, in a normal-range case and with
+   numerators below 2^-100 (residue on the goal, where ChainOps' quotient
+   hands the chunk to ExactChainOps'); float32 at the main path's shape
    (N=2048, T=1000), K1 on Cartpole v0 and v1;
 4. the main path: make_ilqr_solver_batched on Cartpole-TO-v0, T=1000,
    N=2048, 10 iterations, backward="cuda-fused", rollout="cuda", float32, from
@@ -92,9 +95,11 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    1e-8) and to each other over 10; K14 in float32 where its division
    scales numerators below 2^-99 and where a sine argument past 105615
    sends its RK4 back to the library's operations, held to its plain
-   version; ms per solve and instance-iterations/s
+   version, and there the streamed engine held to the fused one bit for bit,
+   as at the N=64 solve; ms per solve and instance-iterations/s
    at N=64, 1024 and 1, the scan engine's ms for one iteration at N=64, and
-   each kernel's device time, bound and plain time;
+   each kernel's device time, bound and plain time, K11/K12's also on each
+   launch of the N=1024 solve;
 17. the robust-GPS kernels K15-K16 (the adversary's MatrixNormal sweep and
    the cubature-KL step) against their plain versions: float64 at dims 2/1
    (p = 8, N=3, T=5) and 4/2 (p = 28, N=8, T=16), each with a non-PD case
@@ -154,6 +159,19 @@ N_RAGGED, T_RAGGED = 50, 45
 #   -> fused step about 2030; stream backward step 520.
 OPS_PER_STEP = {"K1": 2030, "K2": 192, "K3": 192, "K4": 520}
 
+# K2/K3 held bit for bit (equal, NaN in the same places) in float32 to their
+# plain versions run on the CPU, where PyTorch divides by a scalar as a / b
+# (its CUDA kernel multiplies by RN(1/b)) and where, as in ChainOps, a sine
+# or cosine of an angle below 3e-5 is the angle or 1: a normal-range case
+# (states, references, feed-forward of order 1e-7), then the same shape near
+# the goal with them of order 1e-38, so that the ODE's numerators fall in
+# [2^-135, 2^-100), below the range of ChainOps' quotient (csrc/envs.cuh),
+# around 2^-128, where Markstein's quotient misses a / b most often (up to a
+# fifth of numerators; tests/test_torch_chain_division.py) and ChainOps'
+# vote sends the chunk to ExactChainOps' division.  (label, scale)
+ROLLOUT_EXACT_CASES = (("normal range", 1e-7), ("residue", 1e-38))
+N_ROLLOUT_EXACT, T_ROLLOUT_EXACT = 32, 20
+
 # The replan path (bench.py's mpc_batch1_replan_ms row), timed over 3 replans
 # for each backward, and the MPC example.  The timed replans, the GPS-MPC
 # farm and the scan-engine comparisons of the GPS, belief and eLQR paths
@@ -209,6 +227,9 @@ ELQR_F32_TOL, ELQR_F32_TRAJ_TOL, ELQR_F32_SOLVE_TOL = 1e-3, 1e-2, 1e-3
 # the card every time.  (label, θ₀, step, kff scale, nb_iter)
 ELQR_EXACT_CASES = (("tiny numerators", 0.0, 0.0, 1e-33, 2), ("wide angles", 2e5, 1.0, 1.0, 0))
 N_ELQR_EXACT, T_ELQR_EXACT = 4, 10
+# The float sweeps K11/K12 run K14's steps (csrc/elqr.cu), so the streamed
+# engine (K11-K13) equals the fused one (K14) bit for bit in float32: held at
+# the main path's N=64 solve over 10 iterations and on ELQR_EXACT_CASES.
 
 # The robust-GPS paths: K15/K16 at bench.py:669's fixed-point shape (T=100,
 # dims 4/2, batch 8 and 64, float32); the main path at the two configurations
@@ -312,6 +333,20 @@ def errors(name, got, ref, tol, floor=0.0):
 def same_flags(name, got, ref):
     if not torch.equal(got, ref):
         fail(f"{name}: flags differ in {(got != ref).sum().item()} lanes")
+
+
+def same_bits(name, got, ref):
+    """Fail unless ``got`` equals ``ref`` (torch.equal) with NaN in the same
+    places."""
+    got, ref = got.cpu(), ref.cpu()
+    if got.is_floating_point():
+        nan = torch.isnan(got)
+        if not torch.equal(nan, torch.isnan(ref)):
+            fail(f"{name}: NaN in other places")
+        got, ref = got[~nan], ref[~nan]
+    if not torch.equal(got, ref):
+        fail(f"{name}: differs in {(got != ref).sum().item()} of {got.numel()} entries")
+    log(f"  {name}: equal")
 
 
 def trajectory(env, N, T, seed, dtype, device):
@@ -454,6 +489,39 @@ def check_rollouts(env, streams, w, alphas, tol, label=""):
     for i, part in enumerate(("actions", "terminal state", "returns")):
         errors(f"K3{label} {part}", outs[i + 1], outsp[i + 1], tol)
     return errs
+
+
+def check_rollout_exact(env, device):
+    """ROLLOUT_EXACT_CASES: K2 (11 α) and K3 on the card against their plain
+    versions on the CPU, bit for bit; K = 10·N(0, 1), the start state, the
+    references and kff scaled N(0, 1)."""
+    from trajopt_torch.core import cuda_rollout
+    from trajopt_torch.solvers.common import DEFAULT_ALPHAS
+
+    N, T = N_ROLLOUT_EXACT, T_ROLLOUT_EXACT
+    alphas = torch.tensor(DEFAULT_ALPHAS, dtype=torch.float32, device=device)
+    alpha_l = alphas[torch.arange(N, device=device) % alphas.shape[0]].contiguous()
+    for label, scale in ROLLOUT_EXACT_CASES:
+        rng = np.random.default_rng(21)
+        K = 10.0 * rng.standard_normal((T, 4, N))
+        kff, xref, uref = (scale * rng.standard_normal(shape)
+                           for shape in ((T, 1, N), (T, 4, N), (T, 1, N)))
+        streams = [torch.as_tensor(a, dtype=torch.float32, device=device)
+                   for a in (K, kff, xref, uref)]
+        w = torch.ones(T + 1, dtype=torch.float32, device=device)
+        cpu = [t.cpu() for t in (*streams, w)]
+        log(f"K2/K3 check: float32, {label} (scale {scale:.0e}), N={N}, T={T}, bit for bit "
+            "against the plain versions on the CPU")
+        got = cuda_rollout.cuda_rollout_returns(env, *streams, w, alphas)
+        ref = cuda_rollout.rollout_returns_plain(env, *cpu, alphas.cpu())
+        for part, g, r in zip(("returns", "ok"), got, ref):
+            same_bits(f"K2 {label} {part}", g, r)
+        got = cuda_rollout.cuda_rollout_selected(env, *streams, w, alpha_l)
+        ref = cuda_rollout.rollout_selected_plain(env, *cpu, alpha_l.cpu())
+        nonzero = ref[0][ref[0] != 0].abs()
+        log(f"  {label}: states from {nonzero.min().item():.2e} to {nonzero.max().item():.2e}")
+        for part, g, r in zip(("states", "actions", "terminal state", "returns"), got, ref):
+            same_bits(f"K3 {label} {part}", g, r)
 
 
 def pscan_problem(T, dx, du, dtype, device, seed=0, non_pd=False):
@@ -1645,11 +1713,47 @@ def check_elqr_f64(device):
     check_elqr_sweeps("f64 Cartpole-TO-v0 random operands", env, K, kff, goV, gov, x0, x0, 1e-9)
 
 
-def elqr_kernel_rows(card, launches, errs, plain_ms, operands, k14):
+def same_solves(label, got, ref):
+    """Two make_elqr_solver_batched results equal bit for bit: K, kff, xs, us
+    and the trace."""
+    for name, g, r in zip(("K", "kff", "xs", "us", "trace"),
+                          (got[0].K, got[0].kff, *got[1:]), (ref[0].K, ref[0].kff, *ref[1:])):
+        same_bits(f"{label} {name}", g, r)
+
+
+def elqr_main_path_launch_ms(solve, x0s, kff0):
+    """Device ms of each K11 and K12 launch of one main-path solve: each
+    launch's operands are kept and the launch replayed, back to back."""
+    from trajopt_torch.core import cuda_elqr as ce
+
+    names = {"K11": "cuda_elqr_forward", "K12": "cuda_elqr_backward"}
+    originals = {k: getattr(ce, name) for k, name in names.items()}
+    kept = {k: [] for k in names}
+
+    def keeping(k):
+        def call(*args):
+            kept[k].append(args)
+            return originals[k](*args)
+        call.launches = 0
+        return call
+
+    try:
+        for k, name in names.items():
+            setattr(ce, name, keeping(k))
+        solve(x0s, kff_init=kff0)
+    finally:
+        for k, name in names.items():
+            setattr(ce, name, originals[k])
+    return {k: [device_ms_back_to_back(lambda: originals[k](*args), 5)[0] for args in kept[k]]
+            for k in names}
+
+
+def elqr_kernel_rows(card, launches, errs, plain_ms, operands, k14, main_ms):
     """Device time per launch (queued back to back behind a sleep), bytes,
     operations and bound of K11-K13 at the streamed engine's first-iteration
     operands (N=1024, T=100) and of K14 at the timed solve (N=64, T=100, 10
-    iterations)."""
+    iterations); K11/K12's device time on each launch of the main path's
+    solve beside them (``main_ms``)."""
     import trajopt_torch
     from trajopt_torch.core import cuda_elqr as ce
 
@@ -1684,6 +1788,9 @@ def elqr_kernel_rows(card, launches, errs, plain_ms, operands, k14):
             # no single PyTorch call computes an eLQR sweep or solve
             "library_ms": None,
         }
+        if k in main_ms:
+            row["ms_main_path_mean"] = sum(main_ms[k]) / len(main_ms[k])
+            row["ms_main_path"] = main_ms[k]
         rows.append(row)
         log(json.dumps({"metric": "kernel", "shape": f"Cartpole-TO-v0 {shape} float32", **row,
                         "enqueue_ms_per_call": enqueue_ms / reps, "bytes": moved[k],
@@ -1773,6 +1880,17 @@ def elqr_phases(device, card, wrappers):
             f"nb_iter={nb_iter}, tolerance {ELQR_F32_SOLVE_TOL:.0e}")
         check_k14(f"f32 {label}", env, to_soa(scale * kff0, N_ELQR_EXACT), x0s.T.contiguous(),
                   nb_iter, ELQR_F32_SOLVE_TOL)
+        log(f"eLQR engines: float32, {label}, cuda (K11-K13) against cuda-fused (K14)")
+        got, ref = (make_elqr_solver_batched(env, T_ELQR_EXACT, nb_iter, engine=e, **f32)(
+            x0s, kff_init=scale * kff0) for e in ("cuda", "cuda-fused"))
+        same_solves(f"f32 {label} cuda vs cuda-fused", got, ref)
+
+    # the streamed engine against the fused one on the main path's N=64 solve
+    log(f"eLQR engines: float32, N={N_ELQR_FUSED}, T={T}, nb_iter={it}, cuda (K11-K13) "
+        "against cuda-fused (K14), bit for bit")
+    x0s, kff0, fused, _ = runs[N_ELQR_FUSED]
+    streamed = make_elqr_solver_batched(env, T, it, engine="cuda", **f32)(x0s, kff_init=kff0)
+    same_solves(f"f32 N={N_ELQR_FUSED} cuda vs cuda-fused", streamed, fused)
 
     # both kernel engines against the scan engine in float64
     n8 = N_ELQR_SCAN
@@ -1817,8 +1935,12 @@ def elqr_phases(device, card, wrappers):
                     f"nb_iter={ELQR_SCAN_TIMED_ITER} N={N_ELQR_FUSED} engine=scan float32",
                     "ms_per_solve": scan_ms, "ms_per_iteration_with_rollouts":
                     scan_ms / ELQR_SCAN_TIMED_ITER, "gpu": card}))
+    main_ms = elqr_main_path_launch_ms(solve, *runs[N_ELQR_STREAM][:2])
+    log(json.dumps({"metric": "elqr_sweeps_main_path", "config": f"Cartpole-TO-v0 T={T} "
+                    f"nb_iter={it} N={N_ELQR_STREAM} engine=auto->cuda float32",
+                    "ms_per_launch": main_ms, "gpu": card}))
     return elqr_kernel_rows(card, main_launches, errs, plain_ms, operands,
-                            (k14_in, ce.cuda_elqr_solve(env, *k14_in, it)))
+                            (k14_in, ce.cuda_elqr_solve(env, *k14_in, it)), main_ms)
 
 
 # --------------------------------------------------------------------------------------
@@ -2289,6 +2411,7 @@ def main():
         check_rollouts(env_v0, (rag_K, rag_kff, rag["xr"], rag["ur"]), rag["w"],
                        torch.tensor(picked, dtype=torch.float64, device=dev), 1e-9,
                        f" nA={nA}")
+    check_rollout_exact(env_v0, dev)
     errs, inp = check_kernels(env_v0, env_v1, N_MAIN, T_MAIN, torch.float32, 2e-3, dev, (1,),
                               main_path_streams(env_v0, x0))
 

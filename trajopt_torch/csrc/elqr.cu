@@ -18,42 +18,45 @@
 // 6 µs at 3.35 TB/s) and does about 2,500 operations (a dual-number RK4 over
 // five tangents, the feature Jacobian, the value algebra, two Gauss–Jordan
 // inverses: 4 µs at 67 TFLOP/s).  Each instance is T dependent steps, each a
-// chain of thousands of dependent instructions on one thread, so the time is
-// T times one step's latency, as for K1.
+// chain of thousands of dependent instructions, so the time is T times one
+// step's latency, as for K1.  Of a float step, the two RK4s were the most
+// (PERF.md): chains of library divisions and sines, and the
+// trajectories settle on the goal, where the ODE's numerators are rounding
+// residue down to subnormals and every such division takes the library's
+// slow path (about 500 cycles against 45).  The sweeps' steps took twice as
+// long from the fourth iteration on as at the first.
 //
-// Design: one thread per instance in the sweeps (blocks of 32) and in the
-// float64 solve.  Streams are structure of arrays with time leading,
-// (T(+1), entries, N), coalesced across instances; the come and go values
-// keep their boundary rows in place (comeV₀ = 1e-16·I at row 0, the terminal
-// go values at row T).  The value carry stays in registers.  A, B and c of
-// the inverse RK4 (K11) and the forward RK4 (K12) are the tangents of one
-// dual-number evaluation with dx+du tangents (dual.cuh), which carries
-// jnp.clip's ½ slope at a bound.  The cost quadratization is closed form for
-// the base feature-goal cost at u_last = 0, a = 1 (pallas_elqr.py:99-143):
-// Cxx = JᵀGJ, cx = 2JᵀG(z₀−g) − 2Cxx·x, Cuu = diag(uw), Cxu = cu = 0, J from
-// a dual evaluation of the features.  Inverses are partial-pivoting
-// Gauss–Jordan (gj_inv.cuh); comeV and goV are symmetrized as in the TPU
-// kernels.  The solve keeps its (T+1)-row working streams in a device scratch
-// that the wrapper allocates.  Every small sum runs in the order of the TPU
-// kernel (index 0 first) and the build uses -fmad=false, so the float64
-// build agrees with the plain versions (core/cuda_elqr.py) to rounding.
+// Design.  Streams are structure of arrays with time leading, (T(+1),
+// entries, N), coalesced across instances; the come and go values keep
+// their boundary rows in place (comeV₀ = 1e-16·I at row 0, the terminal go
+// values at row T).  The value carry stays in registers.  A, B and c of the
+// inverse RK4 (K11) and the forward RK4 (K12) are the tangents of a
+// dual-number evaluation (dual.cuh), which carries jnp.clip's ½ slope at a
+// bound.  The cost quadratization is closed form for the base feature-goal
+// cost at u_last = 0, a = 1 (pallas_elqr.py:99-143): Cxx = JᵀGJ, cx =
+// 2JᵀG(z₀−g) − 2Cxx·x, Cuu = diag(uw), Cxu = cu = 0, J from a dual
+// evaluation of the features.  Inverses are partial-pivoting Gauss–Jordan
+// (gj_inv.cuh); comeV and goV are symmetrized as in the TPU kernels.  The
+// solve keeps its (T+1)-row working streams in a device scratch that the
+// wrapper allocates.  Every small sum runs in the order of the TPU kernel
+// (index 0 first) and the build uses -fmad=false, so the float64 build
+// agrees with the plain versions (core/cuda_elqr.py) to rounding.
 //
-// K14's float build, for Hopper.  Measured first (PERF.md): the two
-// RK4s were 86 % of a sweep step, each a chain of library divisions and
-// sines; the trajectories settle on the goal, where the ODE's numerators
-// are rounding residue down to subnormals and every such division takes the
-// library's slow path (about 500 cycles against 45).  Its ODE now divides
-// with PivotOps::div_moderate (pivot.cuh: a / b's bits for every float
-// numerator over the ODE's divisors, without a branch) and takes ChainOps'
-// sines (a step whose angle passes 105615 is taken again with the library's
-// operations), and the linearization's five tangents go over the lanes: a
-// group of eight lanes per instance, four instances a warp, one warp a block
-// (N=64 on 16 SMs), lane k evaluating the value and tangent k alone (the
-// same operations as tangent k of the five-tangent dual), the Jacobian's
-// columns gathered by shuffles.  Everything else runs on every lane of the
-// group alike, which writes the same values to the same places; lanes past
-// the last instance repeat it.  The outputs are bit for bit those of the
-// one-thread, library-operation kernel (PERF.md).
+// The float builds of the sweeps (K11, K12) and of the solve (K14) share one
+// step: the ODE divides with PivotOps::div_moderate (pivot.cuh: a / b's bits
+// for every float numerator over the ODE's divisors, without a branch) and
+// takes ChainOps' sines (a step whose angle passes 105615 is taken again
+// with the library's operations), and the linearization's five tangents go
+// over the lanes: a group of eight lanes per instance, four instances a
+// warp, one warp a block (K11/K12 at N=1024: 256 warps on the 132 SMs),
+// lane k evaluating the value and tangent k alone (the same operations as
+// tangent k of the five-tangent dual), the Jacobian's columns gathered by
+// shuffles.  Everything else runs on every lane of the group alike, which
+// writes the same values to the same places; lanes past the last instance
+// repeat it.  The outputs are bit for bit those of the one-thread,
+// library-operation kernels (PERF.md).  The float64 build keeps one thread
+// an instance and the library's operations, and so does the evaluation
+// rollout K13.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -62,26 +65,38 @@
 #include "envs.cuh"
 #include "gj_inv.cuh"
 
-constexpr int ELQR_SWEEP_THREADS = 32;
-constexpr int ELQR_SOLVE_THREADS = 32;
-// K14's float build: the lanes of a group share one instance, lane k
-// carrying the linearization's tangent k (k ≥ dx + du: a zero tangent).
+constexpr int ELQR_THREADS = 32;
+// The float builds of K11, K12 and K14: the lanes of a group share one
+// instance, lane k carrying the linearization's tangent k (k ≥ dx + du: a
+// zero tangent).
 constexpr int ELQR_GROUP = 8;
 
-// The lanes given to one instance of K14.
+// The lanes given to one instance of K11, K12 and K14.
 template <typename S>
 __host__ __device__ constexpr int group_lanes() {
   return std::is_same<S, float>::value ? ELQR_GROUP : 1;
+}
+
+// The instance of this thread in a kernel that gives each instance a group
+// of group_lanes<S>() lanes: in float the lanes past the last instance repeat
+// it (every lane joins the shuffles), and the lanes of a group write the same
+// values to the same places; with one lane an instance, −1 past the last.
+template <typename S>
+__device__ __forceinline__ int group_instance(int N) {
+  constexpr int G = group_lanes<S>();
+  const int n = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (n < N) return n;
+  return G == 1 ? -1 : N - 1;
 }
 
 // Element (t, e) of a (rows, E, N) stream for instance n.
 #define AT(ptr, t, E, e) (ptr)[((size_t)(t) * (E) + (e)) * np + n]
 
 // One RK4 step of the ODE (Backward: the inverse dynamics) on plain or dual
-// scalars.  Fast (K14's float build): ExactChainOps (envs.cuh), the step
-// taken again with the library's operations where a sine's argument left
-// ChainOps' range, so the bits are the library's either way; otherwise
-// (K11-K13, float64) the library's operations.
+// scalars.  Fast (the float sweeps, and K14's rollouts): ExactChainOps
+// (envs.cuh), the step taken again with the library's operations where a
+// sine's argument left ChainOps' range, so the bits are the library's either
+// way; otherwise (K13, float64) the library's operations.
 template <class Env, bool Backward, bool Fast, typename T>
 __device__ __forceinline__ void rk4(const EnvParams& p, const T (&x)[Env::DX],
                                     const T (&u)[Env::DU], T (&xn)[Env::DX]) {
@@ -97,17 +112,17 @@ __device__ __forceinline__ void rk4(const EnvParams& p, const T (&x)[Env::DX],
 // The affine model f(ξ, ν) ≈ Aξ + Bν + c about (x, u) of the dynamics
 // (Inverse false) or the inverse dynamics (Inverse true):
 // c = (f(x, u) − Ax) − Bu (pallas_elqr.py _tile_lin).
-// With Fast in float (K14) the tangents go over the lanes of the instance's
+// In float (K11, K12, K14) the tangents go over the lanes of the instance's
 // group: lane k evaluates the value and tangent k alone (Dual<S, 1>, the
 // same operations as tangent k of the five-tangent dual, value likewise), and
 // the columns come back by shuffles; every lane of the warp takes part.
-template <class Env, bool Inverse, bool Fast, typename S>
+template <class Env, bool Inverse, typename S>
 __device__ __forceinline__ void lin_about(const EnvParams& p, const S (&x)[Env::DX],
                                           const S (&u)[Env::DU], S (&A)[Env::DX][Env::DX],
                                           S (&B)[Env::DX][Env::DU], S (&c)[Env::DX]) {
   constexpr int DX = Env::DX, DU = Env::DU, NT = DX + DU;
   S f[DX];
-  if constexpr (Fast && group_lanes<S>() > 1) {
+  if constexpr (group_lanes<S>() > 1) {
     static_assert(NT <= ELQR_GROUP, "one lane per tangent");
     using D = Dual<S, 1>;
     const int k = threadIdx.x % ELQR_GROUP, base = threadIdx.x - k;
@@ -116,7 +131,7 @@ __device__ __forceinline__ void lin_about(const EnvParams& p, const S (&x)[Env::
     for (int i = 0; i < DX; ++i) { xd[i] = D(x[i]); xd[i].d[0] = k == i ? S(1) : S(0); }
 #pragma unroll
     for (int j = 0; j < DU; ++j) { ud[j] = D(u[j]); ud[j].d[0] = k == DX + j ? S(1) : S(0); }
-    rk4<Env, Inverse, Fast>(p, xd, ud, fd);
+    rk4<Env, Inverse, true>(p, xd, ud, fd);
 #pragma unroll
     for (int i = 0; i < DX; ++i) {
       f[i] = fd[i].v;
@@ -132,7 +147,7 @@ __device__ __forceinline__ void lin_about(const EnvParams& p, const S (&x)[Env::
     for (int i = 0; i < DX; ++i) { xd[i] = D(x[i]); xd[i].d[i] = S(1); }
 #pragma unroll
     for (int j = 0; j < DU; ++j) { ud[j] = D(u[j]); ud[j].d[DX + j] = S(1); }
-    rk4<Env, Inverse, Fast>(p, xd, ud, fd);
+    rk4<Env, Inverse, false>(p, xd, ud, fd);
 #pragma unroll
     for (int i = 0; i < DX; ++i) {
       f[i] = fd[i].v;
@@ -270,7 +285,7 @@ __device__ __forceinline__ void gains_and_value(const S (&Qxx)[DX][DX], const S 
 // row (K, kff), the go values one step later (goVn, govn); carry: the state
 // x and the come value (V, v, v0) at t, replaced by those at t+1.  Out: the
 // inverse controller (iK, ikff).
-template <class Env, bool Fast, typename S>
+template <class Env, typename S>
 __device__ __forceinline__ void forward_step(
     const EnvParams& p, const S (&K)[Env::DU][Env::DX], const S (&kff)[Env::DU],
     const S (&goVn)[Env::DX][Env::DX], const S (&govn)[Env::DX], S (&x)[Env::DX],
@@ -284,9 +299,9 @@ __device__ __forceinline__ void forward_step(
 #pragma unroll
     for (int j = 0; j < DU; ++j) u[j] = kff[j] + Kx[j];
   }
-  rk4<Env, false, Fast>(p, x, u, xn);
+  rk4<Env, false, true>(p, x, u, xn);
   S A[DX][DX], B[DX][DU], c[DX], Cxx[DX][DX], cx[DX], c0;
-  lin_about<Env, true, Fast>(p, xn, u, A, B, c);
+  lin_about<Env, true>(p, xn, u, A, B, c);
   quad_cost<Env>(p, x, u, Cxx, cx, c0);
 
   S M[DX][DX];
@@ -331,7 +346,7 @@ __device__ __forceinline__ void forward_step(
 // controller row (iK, ikff), the come values at t (comeV, comev); carry: the
 // state x and the go value (V, v, v0) at t+1, replaced by those at t.  Out:
 // the controller (K, kff).
-template <class Env, bool Fast, typename S>
+template <class Env, typename S>
 __device__ __forceinline__ void backward_step(
     const EnvParams& p, const S (&iK)[Env::DU][Env::DX], const S (&ikff)[Env::DU],
     const S (&comeV)[Env::DX][Env::DX], const S (&comev)[Env::DX], S (&x)[Env::DX],
@@ -345,9 +360,9 @@ __device__ __forceinline__ void backward_step(
 #pragma unroll
     for (int j = 0; j < DU; ++j) u[j] = ikff[j] + Kx[j];
   }
-  rk4<Env, true, Fast>(p, x, u, xp);
+  rk4<Env, true, true>(p, x, u, xp);
   S A[DX][DX], B[DX][DU], c[DX], Cxx[DX][DX], cx[DX], c0;
-  lin_about<Env, false, Fast>(p, xp, u, A, B, c);
+  lin_about<Env, false>(p, xp, u, A, B, c);
   quad_cost<Env>(p, xp, u, Cxx, cx, c0);
 
   S Qxx[DX][DX], Quu[DU][DU], Qux[DU][DX], qx[DX], qu[DU];
@@ -436,7 +451,7 @@ __device__ __forceinline__ void store_vec(S* __restrict__ s, int t, size_t np, i
 // The forward sweep over t = 0 … T−1 from the state x: reads K, kff (rows t)
 // and goV, gov (rows t+1); writes iK, ikff (rows t) and comeV, comev (rows
 // 0 … T, row 0 the initial 1e-16·I and 0), comev0 when given.
-template <class Env, bool Fast, typename S>
+template <class Env, typename S>
 __device__ __forceinline__ void forward_sweep(const EnvParams& p, const S* K, const S* kff,
                                               const S* goV, const S* gov, S* iK, S* ikff,
                                               S* comeV, S* comev, S* comev0, S (&x)[Env::DX],
@@ -458,7 +473,7 @@ __device__ __forceinline__ void forward_sweep(const EnvParams& p, const S* K, co
     load_vec(kff, t, np, n, kt);
     load_mat(goV, t + 1, np, n, goVn);
     load_vec(gov, t + 1, np, n, govn);
-    forward_step<Env, Fast>(p, Kt, kt, goVn, govn, x, V, v, v0, iKt, ikt);
+    forward_step<Env>(p, Kt, kt, goVn, govn, x, V, v, v0, iKt, ikt);
     store_mat(iK, t, np, n, iKt);
     store_vec(ikff, t, np, n, ikt);
     store_mat(comeV, t + 1, np, n, V);
@@ -470,7 +485,7 @@ __device__ __forceinline__ void forward_sweep(const EnvParams& p, const S* K, co
 // The terminal step and the backward sweep over t = T−1 … 0 from the state x:
 // reads iK, ikff (rows t) and comeV, comev (rows 0 … T); writes K, kff (rows
 // t) and goV, gov (rows 0 … T, row T the terminal value), gov0 when given.
-template <class Env, bool Fast, typename S>
+template <class Env, typename S>
 __device__ __forceinline__ void backward_sweep(const EnvParams& p, const S* iK, const S* ikff,
                                                const S* comeV, const S* comev, S* K, S* kff,
                                                S* goV, S* gov, S* gov0, S (&x)[Env::DX],
@@ -492,7 +507,7 @@ __device__ __forceinline__ void backward_sweep(const EnvParams& p, const S* iK, 
     load_vec(ikff, t, np, n, ikt);
     load_mat(comeV, t, np, n, cV);
     load_vec(comev, t, np, n, cv);
-    backward_step<Env, Fast>(p, iKt, ikt, cV, cv, x, V, v, v0, Kt, kt);
+    backward_step<Env>(p, iKt, ikt, cV, cv, x, V, v, v0, Kt, kt);
     store_mat(K, t, np, n, Kt);
     store_vec(kff, t, np, n, kt);
     store_mat(goV, t, np, n, V);
@@ -535,37 +550,37 @@ __device__ __forceinline__ S rollout(const EnvParams& p, const S* K, const S* kf
 }
 
 template <typename S, class Env>
-__global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_forward_kernel(
+__global__ void __launch_bounds__(ELQR_THREADS) elqr_forward_kernel(
     EnvParams p, const S* __restrict__ K, const S* __restrict__ kff, const S* __restrict__ goV,
     const S* __restrict__ gov, const S* __restrict__ x0, S* __restrict__ iK,
     S* __restrict__ ikff, S* __restrict__ comeV, S* __restrict__ comev, S* __restrict__ comev0,
     S* __restrict__ xout, int T, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const int n = group_instance<S>(N);
+  if (n < 0) return;
   const size_t np = N;
   S x[Env::DX];
   load_vec(x0, 0, np, n, x);
-  forward_sweep<Env, false>(p, K, kff, goV, gov, iK, ikff, comeV, comev, comev0, x, T, np, n);
+  forward_sweep<Env>(p, K, kff, goV, gov, iK, ikff, comeV, comev, comev0, x, T, np, n);
   store_vec(xout, 0, np, n, x);
 }
 
 template <typename S, class Env>
-__global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_backward_kernel(
+__global__ void __launch_bounds__(ELQR_THREADS) elqr_backward_kernel(
     EnvParams p, const S* __restrict__ iK, const S* __restrict__ ikff,
     const S* __restrict__ comeV, const S* __restrict__ comev, const S* __restrict__ xin,
     S* __restrict__ K, S* __restrict__ kff, S* __restrict__ goV, S* __restrict__ gov,
     S* __restrict__ gov0, S* __restrict__ xout, int T, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const int n = group_instance<S>(N);
+  if (n < 0) return;
   const size_t np = N;
   S x[Env::DX];
   load_vec(xin, 0, np, n, x);
-  backward_sweep<Env, false>(p, iK, ikff, comeV, comev, K, kff, goV, gov, gov0, x, T, np, n);
+  backward_sweep<Env>(p, iK, ikff, comeV, comev, K, kff, goV, gov, gov0, x, T, np, n);
   store_vec(xout, 0, np, n, x);
 }
 
 template <typename S, class Env>
-__global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_rollout_kernel(
+__global__ void __launch_bounds__(ELQR_THREADS) elqr_rollout_kernel(
     EnvParams p, const S* __restrict__ K, const S* __restrict__ kff, const S* __restrict__ x0,
     S* __restrict__ ret, S* __restrict__ xs, S* __restrict__ us, int T, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -583,17 +598,13 @@ __global__ void __launch_bounds__(ELQR_SWEEP_THREADS) elqr_rollout_kernel(
 // on in their output streams; scratch holds iK, ikff (T rows), comeV, comev,
 // goV, gov (T+1 rows), each (rows, entries, N).
 template <typename S, class Env>
-__global__ void __launch_bounds__(ELQR_SOLVE_THREADS) elqr_solve_kernel(
+__global__ void __launch_bounds__(ELQR_THREADS) elqr_solve_kernel(
     EnvParams p, const S* __restrict__ kff0, const S* __restrict__ x0, S* __restrict__ K,
     S* __restrict__ kff, S* __restrict__ xs, S* __restrict__ us, S* __restrict__ rets,
     S* __restrict__ scratch, int T, int N, int nb_iter) {
-  constexpr int DX = Env::DX, DU = Env::DU, G = group_lanes<S>();
-  // a group of G lanes per instance; in float the lanes past the last
-  // instance repeat it (every lane joins the shuffles), and the lanes of a
-  // group write the same values to the same places
-  int n = (blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (G == 1 && n >= N) return;
-  n = n < N ? n : N - 1;
+  constexpr int DX = Env::DX, DU = Env::DU;
+  const int n = group_instance<S>(N);
+  if (n < 0) return;
   const size_t np = N;
   S* iK = scratch;
   S* ikff = iK + (size_t)T * DU * DX * np;
@@ -620,10 +631,8 @@ __global__ void __launch_bounds__(ELQR_SOLVE_THREADS) elqr_solve_kernel(
 #pragma unroll
   for (int i = 0; i < DX; ++i) x[i] = xinit[i];
   for (int it = 0; it < nb_iter; ++it) {
-    forward_sweep<Env, true>(p, K, kff, goV, gov, iK, ikff, comeV, comev, (S*)nullptr, x, T, np,
-                             n);
-    backward_sweep<Env, true>(p, iK, ikff, comeV, comev, K, kff, goV, gov, (S*)nullptr, x, T, np,
-                              n);
+    forward_sweep<Env>(p, K, kff, goV, gov, iK, ikff, comeV, comev, (S*)nullptr, x, T, np, n);
+    backward_sweep<Env>(p, iK, ikff, comeV, comev, K, kff, goV, gov, (S*)nullptr, x, T, np, n);
     AT(rets, it + 1, 1, 0) =
         rollout<Env, true>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
   }
@@ -638,23 +647,22 @@ template <typename S, class Env>
 static int launch(int which, const EnvParams& p, const void* const* a, const int* ints,
                   cudaStream_t s) {
   const int T = ints[0], N = ints[1];
-  const int sweep = ELQR_SWEEP_THREADS;
+  // one warp a block, 32 / G instances a warp in the sweeps and the solve, so
+  // that the chains of a batch run on separate SMs
+  const int threads = ELQR_THREADS, groups = blocks_of(N * group_lanes<S>(), threads);
   if (which == 0) {
-    elqr_forward_kernel<S, Env><<<blocks_of(N, sweep), sweep, 0, s>>>(
+    elqr_forward_kernel<S, Env><<<groups, threads, 0, s>>>(
         p, (const S*)a[0], (const S*)a[1], (const S*)a[2], (const S*)a[3], (const S*)a[4],
         (S*)a[5], (S*)a[6], (S*)a[7], (S*)a[8], (S*)a[9], (S*)a[10], T, N);
   } else if (which == 1) {
-    elqr_backward_kernel<S, Env><<<blocks_of(N, sweep), sweep, 0, s>>>(
+    elqr_backward_kernel<S, Env><<<groups, threads, 0, s>>>(
         p, (const S*)a[0], (const S*)a[1], (const S*)a[2], (const S*)a[3], (const S*)a[4],
         (S*)a[5], (S*)a[6], (S*)a[7], (S*)a[8], (S*)a[9], (S*)a[10], T, N);
   } else if (which == 2) {
-    elqr_rollout_kernel<S, Env><<<blocks_of(N, sweep), sweep, 0, s>>>(
+    elqr_rollout_kernel<S, Env><<<blocks_of(N, threads), threads, 0, s>>>(
         p, (const S*)a[0], (const S*)a[1], (const S*)a[2], (S*)a[3], (S*)a[4], (S*)a[5], T, N);
   } else {
-    // one warp a block, 32 / G instances a warp, so that the chains of a
-    // batch run on separate SMs
-    const int threads = ELQR_SOLVE_THREADS, blocks = blocks_of(N * group_lanes<S>(), threads);
-    elqr_solve_kernel<S, Env><<<blocks, threads, 0, s>>>(
+    elqr_solve_kernel<S, Env><<<groups, threads, 0, s>>>(
         p, (const S*)a[0], (const S*)a[1], (S*)a[2], (S*)a[3], (S*)a[4], (S*)a[5], (S*)a[6],
         (S*)a[7], T, N, ints[2]);
   }

@@ -23,7 +23,9 @@
 // Design: the step runs the env's physics with ChainOps (envs.cuh), which
 // gives the same float quotients, sines and cosines without those branches;
 // a chunk in which any lane's sine argument left ChainOps' range (a rollout
-// past |θ| = 105615) is taken again by the warp with the library's.  The
+// past |θ| = 105615) is taken again by the warp with the library's, and one
+// in which a lane's numerator left the range of ChainOps' quotient (below
+// 2^-99: residue on the goal) with ExactChainOps' quotient.  The
 // kernels stage their operands with the ring of ring.cuh, walked forward in
 // time.  A block takes kRollGroup instances; a producer warp
 // copies the next chunk of the four streams and the weighting into shared
@@ -34,9 +36,11 @@
 // (a second grid dimension covers more), and the α lanes of one instance read
 // the same staged words as a broadcast.  The state and the previous action
 // stay in registers across the time loop.  The operations and their order are
-// those of the first version, so the outputs are the same to the bit (in
-// float within ChainOps' range, which a rollout leaves only past 1e30).
+// those of the first version, so the outputs are the same to the bit, in
+// float too.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "envs.cuh"
 #include "ring.cuh"
@@ -163,8 +167,10 @@ struct Rollout {
 
 // The consumer lanes' walk over the staged chunks: step(roll, op, w, t, ops)
 // for every step t in order, op the lane's slot of the step in the stage.  A
-// chunk runs with ChainOps; if any lane's sine argument left ChainOps' range
-// there, the warp takes the chunk again from its start with LibOps.
+// chunk runs with ChainOps; if any lane's numerator left the range of
+// ChainOps' quotient there, the warp takes the chunk again from its start
+// with ExactChainOps, and if any lane's sine argument left ChainOps' range,
+// with LibOps.
 template <class Roles, typename S, int DX, int DU, class Roll, class Step>
 __device__ __forceinline__ void walk(const RollStreams<S, DX, DU>& in, const S* ring, int g,
                                      bool live, Roll& roll, Step&& step) {
@@ -181,9 +187,19 @@ __device__ __forceinline__ void walk(const RollStreams<S, DX, DU>& in, const S* 
           step(roll, stage + s * L::E * kRollGroup + g, stage[L::W + s], t0 + s, ops);
       };
       const Roll start = roll;
+      const unsigned lanes = __activemask();
       ChainOps fast;
       chunk(fast);
-      if (__any_sync(__activemask(), fast.wide)) {
+      bool wide = __any_sync(lanes, fast.wide);
+      if constexpr (std::is_same<S, float>::value) {
+        if (!wide && __any_sync(lanes, fast.far())) {
+          roll = start;
+          ExactChainOps exact;
+          chunk(exact);
+          wide = __any_sync(lanes, exact.wide);
+        }
+      }
+      if (wide) {
         roll = start;
         LibOps lib;
         chunk(lib);
