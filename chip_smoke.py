@@ -49,13 +49,17 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    float64 at N=50, T=48 for (dx, du) = (2, 1) and (4, 2) with
    α ∈ {1e-16, 1, 1e16}; a non-PD −Quu (equal flags, finite outputs);
    float32 at the dual chain's benchmark shape (T=1000, N=4096, dx=4, du=2,
-   α=10) and on the solver path's first dual operands;
+   α=10) and on the solver path's first dual operands; K6 there bit for bit
+   (its first 64 instances, α ∈ {1e-16, 1, 1e16}, against its plain version
+   on the card; c₀ within 1e-5);
 10. the GPS solver path: make_mbgps_solver_batched on Pendulum-TO-v0,
    dt=0.05, T=100, N=4096, 10 iterations of 64 bisection steps, float32,
    engine="cuda"; exactly 640 launches each of K6 and K7, finite traces, no
    final return above its initial one, and the scan engine on the first 64
    instances for 2 iterations within rtol/atol 1e-4; ms per outer iteration
-   and per dual evaluation, and a torch.profiler split of one iteration;
+   and per dual evaluation, a torch.profiler split of one iteration, and
+   K6's and K7's device time on each of that iteration's 64 launches
+   (operands kept, launches replayed back to back);
 11. the GPS-MPC farm: run_gps_mpc_batch (batched, engine="cuda") on
    Pendulum-TO-v0, 50 episodes, horizon 20, 25 steps, 3 iterations; finite
    costs, the first 4 episodes' first 2 steps against the scan engine on the
@@ -98,7 +102,7 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    version, and there the streamed engine held to the fused one bit for bit,
    as at the N=64 solve; ms per solve and instance-iterations/s
    at N=64, 1024 and 1, the scan engine's ms for one iteration at N=64, and
-   each kernel's device time, bound and plain time, K11/K12's also on each
+   each kernel's device time, bound and plain time, K11-K13's also on each
    launch of the N=1024 solve;
 17. the robust-GPS kernels K15-K16 (the adversary's MatrixNormal sweep and
    the cubature-KL step) against their plain versions: float64 at dims 2/1
@@ -192,6 +196,14 @@ N_GPS_SCAN, GPS_ITER_SCAN = 64, 2
 GPS_MPC_EPISODES, GPS_MPC_HORIZON, GPS_MPC_STEPS, GPS_MPC_ITER = 50, 20, 25, 3
 GPS_MPC_CHECK_EPISODES, GPS_MPC_CHECK_STEPS = 4, 2
 T_DUAL, N_DUAL = 1000, 4096
+# K6 held bit for bit in float32 to its plain version on the card (the same
+# IEEE operations in the same order; the −Quu pivots' square roots and
+# reciprocals are sqrtf's and 1/d's bits) on the solver path's first dual
+# operands, the first 64 instances, α across the bisection's box; c₀ sums
+# logf, held to a tolerance.  Not on the CPU: PyTorch's CPU square root
+# (MKL's vector math) misses the correctly rounded root by an ulp on about 1%
+# of arguments, and the card's is correctly rounded (PERF.md).
+K6_EXACT_N, K6_EXACT_ALPHAS, K6_EXACT_C0_TOL = 64, (1e-16, 1.0, 1e16), 1e-5
 
 # The belief paths: K8 at bench.py's backward row (bench.py:511: LightDark's
 # dims, T=25, batch 4096) and the batched solver at that shape, 10
@@ -649,37 +661,81 @@ def device_ms_per_launch(fn, reps, kernel):
     return sum(e.self_device_time_total for e in hits) / 1e3 / count, count
 
 
-def device_ms_back_to_back(fn, reps):
+def device_ms_back_to_back(fn, reps, sleep_cycles=int(2e8)):
     """Device time per call of ``fn`` with its launches queued back to back:
-    a sleep kernel holds the stream while the host enqueues ``reps`` calls, so
-    the CUDA events bracket the device's work alone and not the host's time
-    between launches.  Used for K1-K4 and K6-K16, whose wrappers launch
-    nothing but the kernel (the profiler recorded only 1-2 of 20 of K6/K7's
-    launches).  Returns (ms per call, the host's enqueue ms, the sleep's
-    ms)."""
+    a sleep kernel of ``sleep_cycles`` holds the stream while the host
+    enqueues ``reps`` calls, so the CUDA events bracket the device's work
+    alone and not the host's time between launches.  Used for K1-K4 and
+    K6-K16, whose wrappers launch nothing but the kernel (the profiler
+    recorded only 1-2 of 20 of K6/K7's launches).  Where the host stalled and
+    its enqueue outran the sleep, the launches are timed again behind a sleep
+    ten times as long.  Returns (ms per call, the host's enqueue ms, the
+    sleep's ms)."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    s0.record()
-    torch.cuda._sleep(int(2e8))
-    s1.record()
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    enqueue_ms = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    sleep_ms = s0.elapsed_time(s1)
-    if enqueue_ms >= sleep_ms:
-        fail(f"the host took {enqueue_ms:.1f} ms to enqueue, longer than the "
-             f"{sleep_ms:.1f} ms sleep: the launches did not queue back to back")
-    return start.elapsed_time(end) / reps, enqueue_ms, sleep_ms
+    for sleep in (sleep_cycles, 10 * sleep_cycles):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s0.record()
+        torch.cuda._sleep(sleep)
+        s1.record()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        sleep_ms = s0.elapsed_time(s1)
+        if enqueue_ms < sleep_ms:
+            return start.elapsed_time(end) / reps, enqueue_ms, sleep_ms
+    fail(f"the host took {enqueue_ms:.1f} ms to enqueue, longer than the "
+         f"{sleep_ms:.1f} ms sleep: the launches did not queue back to back")
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kept_launches(targets, run):
+    """Run ``run()`` with the kernel wrappers ``targets`` ({key: (module,
+    attribute)}, the name through which the path calls each) replaced by ones
+    that keep every call's arguments and call the original (whose launch
+    count goes on counting).  Returns ({key: [(args, kwargs), ...]},
+    {key: original})."""
+    originals = {k: getattr(mod, name) for k, (mod, name) in targets.items()}
+    kept = {k: [] for k in targets}
+
+    def keeping(k):
+        def call(*args, **kwargs):
+            kept[k].append((args, kwargs))
+            return originals[k](*args, **kwargs)
+        call.launches = 0
+        return call
+
+    try:
+        for k, (mod, name) in targets.items():
+            setattr(mod, name, keeping(k))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for k, (mod, name) in targets.items():
+            setattr(mod, name, originals[k])
+    return kept, originals
+
+
+def replay_ms(kept, originals, reps=5):
+    """Device ms of each kept launch, replayed ``reps`` times back to back
+    (a sleep of 2e7 cycles holds the stream while so few are enqueued)."""
+    return {k: [device_ms_back_to_back(lambda: originals[k](*a, **kw), reps, int(2e7))[0]
+                for a, kw in calls] for k, calls in kept.items()}
+
+
+def spread(ms):
+    """min, median, max and sum of a list of ms per launch."""
+    ms_sorted = sorted(ms)
+    return {"launches": len(ms), "min": ms_sorted[0], "median": ms_sorted[len(ms) // 2],
+            "max": ms_sorted[-1], "sum": sum(ms)}
 
 
 # --------------------------------------------------------------------------------------
@@ -801,20 +857,20 @@ def gps_dual_operands(T, dx, du, N, device):
 def check_gps_case(label, packed, alpha_l, tol):
     """K6 and K7 against their plain versions on the same packed operands
     (K7 on K6's controller); returns the max abs error of K6's gains and of
-    K7's KL sum."""
+    K7's KL sum, K6's flags and the plain versions' ms ({"K6", "K7"}: one
+    call each, the rows' plain time)."""
     from trajopt_torch.core import cuda_gps
 
     k6 = cuda_gps.cuda_gps_backward_packed(packed, alpha_l)
-    p6 = cuda_gps.gps_backward_plain(packed, alpha_l)
+    p6, ms6 = timed(lambda: cuda_gps.gps_backward_plain(packed, alpha_l))
     k7 = cuda_gps.cuda_gps_forward_kl_packed(packed, *k6[:3])
-    p7 = cuda_gps.gps_forward_kl_plain(packed, *k6[:3])
-    torch.cuda.synchronize()
+    p7, ms7 = timed(lambda: cuda_gps.gps_forward_kl_plain(packed, *k6[:3]))
     errs = [errors(f"K6 {label} {name}", a, b, tol)
             for name, a, b in zip(("K", "kff", "sigma_ctl", "V0", "v0", "c0"), k6, p6)]
     same_flags(f"K6 {label} bad", k6[6], p6[6])
     errs7 = [errors(f"K7 {label} {name}", a, b, tol)
              for name, a, b in zip(("kl_sum", "muT", "sigmaT"), k7, p7)]
-    return errs[0], errs7[0], k6[6]
+    return errs[0], errs7[0], k6[6], {"K6": ms6, "K7": ms7}
 
 
 def check_gps_kernels(device):
@@ -829,8 +885,8 @@ def check_gps_kernels(device):
     for dx, du in ((2, 1), (4, 2)):
         cost, dyn, old, alpha, mu0, sig0 = gps_problem(50, 48, dx, du, 7, torch.float64, device,
                                                        (1e-16, 1.0, 1e16))
-        _, _, bad = check_gps_case(f"f64 dx={dx} du={du}", pack_gps(cost, dyn, old, mu0, sig0),
-                                   pack_gps_alpha(alpha), 1e-12)
+        bad = check_gps_case(f"f64 dx={dx} du={du}", pack_gps(cost, dyn, old, mu0, sig0),
+                                   pack_gps_alpha(alpha), 1e-12)[2]
         if bool(bad.any()):
             fail(f"K6 flagged {int(bad.sum())} instances of a positive-definite problem")
     # −Quu indefinite at t = 1: the guard (a bad pivot becomes 1) keeps the
@@ -838,9 +894,8 @@ def check_gps_kernels(device):
     for dx, du in ((2, 1), (4, 2)):
         cost, dyn, old, alpha, mu0, sig0 = gps_problem(50, 48, dx, du, 8, torch.float64, device,
                                                        (1.0,), non_pd_at=1)
-        _, _, bad = check_gps_case(f"f64 non-PD dx={dx} du={du}",
-                                   pack_gps(cost, dyn, old, mu0, sig0), pack_gps_alpha(alpha),
-                                   1e-12)
+        bad = check_gps_case(f"f64 non-PD dx={dx} du={du}",
+                             pack_gps(cost, dyn, old, mu0, sig0), pack_gps_alpha(alpha), 1e-12)[2]
         if not bool(bad.any()):
             fail(f"K6 flagged no instance with −Quu indefinite (dx={dx} du={du})")
     # float32 at the dual chain's benchmark shape: the same operations in the
@@ -849,13 +904,16 @@ def check_gps_kernels(device):
     log(f"K6/K7 checks: float32, T={T_DUAL}, N={N_DUAL}, dx=4, du=2, α=10, tolerance 1e-4")
     cost, dyn, old, alpha, mu0, sig0 = gps_dual_operands(T_DUAL, 4, 2, N_DUAL, device)
     packed, alpha_l = pack_gps(cost, dyn, old, mu0, sig0), pack_gps_alpha(alpha)
-    errs = check_gps_case(f"f32 T={T_DUAL} dx=4 du=2", packed, alpha_l, 1e-4)[:2]
+    errs = check_gps_case(f"f32 T={T_DUAL} dx=4 du=2", packed, alpha_l, 1e-4)
     return packed, alpha_l, errs
 
 
-def gps_kernel_rows(label, packed, alpha_l, launches, errs, card):
+def gps_kernel_rows(label, packed, alpha_l, launches, checked, card, path_ms=None):
     """Device time per launch (back to back), the wrappers' time per call,
-    the plain versions' time, bytes and bound of K6 and K7 on ``packed``."""
+    bytes and bound of K6 and K7 on ``packed``, with the errors and the plain
+    versions' time from ``checked`` (check_gps_case on the same operands);
+    with ``path_ms``, each kernel's device ms on the solver path's own
+    launches beside them."""
     from trajopt_torch.core import cuda_gps
 
     T, dx, N = packed["cx"].shape
@@ -868,15 +926,14 @@ def gps_kernel_rows(label, packed, alpha_l, launches, errs, card):
     specs = {
         "K6": ("K6 gps_backward", "trajopt_tpu/core/pallas_gps.py:82",
                nbytes(*ins6, *k6), k6_operations(T, dx, du),
-               lambda: cuda_gps.cuda_gps_backward_packed(packed, alpha_l),
-               lambda: cuda_gps.gps_backward_plain(packed, alpha_l)),
+               lambda: cuda_gps.cuda_gps_backward_packed(packed, alpha_l)),
         "K7": ("K7 gps_forward_kl", "trajopt_tpu/core/pallas_gps.py:205",
                nbytes(*ins7, *k6[:3], *k7), k7_operations(T, dx, du),
-               lambda: cuda_gps.cuda_gps_forward_kl_packed(packed, *k6[:3]),
-               lambda: cuda_gps.gps_forward_kl_plain(packed, *k6[:3])),
+               lambda: cuda_gps.cuda_gps_forward_kl_packed(packed, *k6[:3])),
     }
     rows = {}
-    for key, (name, replaces, moved, ops, call, plain) in specs.items():
+    errs = dict(zip(("K6", "K7"), checked[:2]))
+    for key, (name, replaces, moved, ops, call) in specs.items():
         device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 20)
         bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops / F32_OPS_PER_S
@@ -884,13 +941,15 @@ def gps_kernel_rows(label, packed, alpha_l, launches, errs, card):
             "name": name, "route": "cuda", "source": "trajopt_torch/csrc/gps.cu",
             "replaces": replaces, "launches": launches[key], "max_abs_err": errs[key],
             # the kernel's own device time; call_ms adds the wrapper's host work
-            "ms": device_ms, "call_ms": time_cuda(call, 20), "plain_ms": time_cuda(plain, 1),
+            "ms": device_ms, "call_ms": time_cuda(call, 20), "plain_ms": checked[3][key],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             # no single PyTorch call computes a soft-Riccati recursion or a
             # Gaussian propagation under a linear-Gaussian controller
             "library_ms": None,
         }
+        if path_ms is not None:
+            row["ms_main_path"] = spread(path_ms[key])
         log(json.dumps({"metric": "kernel", "shape": f"{label}, T={T} N={N} dx={dx} du={du}",
                         **row, "enqueue_ms_per_call": enqueue_ms / 20, "bytes": moved,
                         "operations": ops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -899,13 +958,11 @@ def gps_kernel_rows(label, packed, alpha_l, launches, errs, card):
     return rows
 
 
-def gps_solver_phase(device, card, wrappers):
-    """The solver path: make_mbgps_solver_batched with engine="cuda" at full
-    width; launch counts, finite traces no higher at the end than at the
-    start, the scan engine on the first instances; then its timings and a
-    torch.profiler split of one outer iteration."""
+def gps_path(device):
+    """The GPS solver path's problem: Pendulum-TO-v0 (dt=0.05) from seeded
+    initial means, Σ₀ = 1e-2·I, seeded initial kff; returns (solver(engine,
+    nb_iter), μ₀s, Σ₀s, kff0), float32 on ``device``."""
     import trajopt_torch
-    from trajopt_torch.core.cuda_gps import pack_gps, pack_gps_alpha
     from trajopt_torch.parallel.gps import make_mbgps_solver_batched
 
     env = trajopt_torch.make("Pendulum-TO-v0", dt=0.05)
@@ -920,6 +977,19 @@ def gps_solver_phase(device, card, wrappers):
         return make_mbgps_solver_batched(env, T_GPS, nb_iter=nb_iter, bisect_iters=GPS_BISECT,
                                          engine=engine, **GPS_KW, **kw)
 
+    return solver, mu0s, sigma0s, kff0
+
+
+def gps_solver_phase(device, card, wrappers):
+    """The solver path: make_mbgps_solver_batched with engine="cuda" at full
+    width; launch counts, finite traces no higher at the end than at the
+    start, the scan engine on the first instances; then its timings, a
+    torch.profiler split of one outer iteration and K6/K7's device time on
+    that iteration's own launches."""
+    from trajopt_torch.core.cuda_gps import pack_gps, pack_gps_alpha
+
+    kw = dict(dtype=torch.float32, device=device)
+    solver, mu0s, sigma0s, kff0 = gps_path(device)
     solve = solver("cuda", GPS_ITER)
     for w in wrappers.values():
         w.launches = 0
@@ -980,6 +1050,23 @@ def gps_solver_phase(device, card, wrappers):
 
     dual_ms = time_cuda(dual_eval, 50)
 
+    # K6 and K7 on the path's own launches: the 64 of each in one outer
+    # iteration from the initial state, kept and replayed back to back
+    import trajopt_torch.parallel.gps as gps_module
+
+    kept, originals = kept_launches(
+        {"K6": (gps_module, "cuda_gps_backward_packed"),
+         "K7": (gps_module, "cuda_gps_forward_kl_packed")}, lambda: solve.iteration(state0))
+    for k in ("K6", "K7"):
+        if len(kept[k]) != GPS_BISECT:
+            fail(f"one GPS outer iteration launched {k} {len(kept[k])} times, not {GPS_BISECT}")
+    path_ms = replay_ms(kept, originals)
+    del kept
+    log(json.dumps({"metric": "gps_kernels_solver_path", "config": "one outer iteration from "
+                    f"the initial state, T={T_GPS} N={N_GPS} dx=2 du=1 float32",
+                    "spread": {k: spread(v) for k, v in path_ms.items()},
+                    "ms_per_launch": path_ms, "gpu": card}))
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1020,7 +1107,40 @@ def gps_solver_phase(device, card, wrappers):
         "top_self_cpu_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in top],
         "gpu": card}))
     alpha_l = pack_gps_alpha(torch.ones(N_GPS, T_GPS, **kw))
-    return packed, alpha_l, launches
+    return packed, alpha_l, launches, path_ms
+
+
+def check_k6_exact(packed):
+    """K6 in float32 on the first K6_EXACT_N instances of the solver path's
+    first dual operands, α ∈ K6_EXACT_ALPHAS in turn, against its plain
+    version on the same card: K, kff, Σ_ctl, V₀ and v₀ equal (NaN in the same
+    places), the flags equal, and c₀ within K6_EXACT_C0_TOL of the largest
+    entry."""
+    from trajopt_torch.core import cuda_gps
+
+    n = K6_EXACT_N
+    part = {k: v[..., :n].contiguous() for k, v in packed.items()}
+    T = part["cx"].shape[0]
+    alphas = torch.tensor(K6_EXACT_ALPHAS, dtype=torch.float32)
+    alpha_l = cuda_gps.pack_gps_alpha(alphas[torch.arange(n) % len(alphas)][:, None]
+                                      .expand(n, T).contiguous()).to(part["cx"].device)
+    log(f"K6 check: float32, exact, the solver path's first dual operands, N={n}, T={T}, "
+        f"α ∈ {K6_EXACT_ALPHAS}, against the plain version")
+    got = [t.cpu() for t in cuda_gps.cuda_gps_backward_packed(part, alpha_l)]
+    ref = [t.cpu() for t in cuda_gps.gps_backward_plain(part, alpha_l)]
+    for name, g, r in zip(("K", "kff", "sigma_ctl", "V0", "v0"), got, ref):
+        same_bits(f"K6 exact {name}", g, r)
+    same_flags("K6 exact bad", got[6], ref[6])
+    g, r = got[5].double(), ref[5].double()
+    if not torch.equal(torch.isfinite(g), torch.isfinite(r)):
+        fail("K6 exact c0: non-finite entries in other places")
+    fin = torch.isfinite(r)
+    err = (g[fin] - r[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    scale = max(r[fin].abs().max().item() if bool(fin.any()) else 0.0, 1e-30)
+    log(f"  K6 exact c0: max_abs_err={err:.3e} max_rel_err={err / scale:.3e} "
+        f"(tol {K6_EXACT_C0_TOL:.0e}), {int(ref[6].sum())} of {n} flagged")
+    if not err / scale <= K6_EXACT_C0_TOL:
+        fail(f"K6 exact c0: relative error {err / scale:.3e} above {K6_EXACT_C0_TOL:.0e}")
 
 
 def gps_mpc_phase(device, card, wrappers):
@@ -1612,6 +1732,8 @@ def elqr_inputs(N, T, seed, dtype, device, theta0=0.0, step=0.001):
 
 
 def timed(fn):
+    """``fn()`` and its wall ms, from an idle card to its last kernel's end."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -1722,30 +1844,14 @@ def same_solves(label, got, ref):
 
 
 def elqr_main_path_launch_ms(solve, x0s, kff0):
-    """Device ms of each K11 and K12 launch of one main-path solve: each
+    """Device ms of each K11, K12 and K13 launch of one main-path solve: each
     launch's operands are kept and the launch replayed, back to back."""
     from trajopt_torch.core import cuda_elqr as ce
 
-    names = {"K11": "cuda_elqr_forward", "K12": "cuda_elqr_backward"}
-    originals = {k: getattr(ce, name) for k, name in names.items()}
-    kept = {k: [] for k in names}
-
-    def keeping(k):
-        def call(*args):
-            kept[k].append(args)
-            return originals[k](*args)
-        call.launches = 0
-        return call
-
-    try:
-        for k, name in names.items():
-            setattr(ce, name, keeping(k))
-        solve(x0s, kff_init=kff0)
-    finally:
-        for k, name in names.items():
-            setattr(ce, name, originals[k])
-    return {k: [device_ms_back_to_back(lambda: originals[k](*args), 5)[0] for args in kept[k]]
-            for k in names}
+    kept, originals = kept_launches(
+        {"K11": (ce, "cuda_elqr_forward"), "K12": (ce, "cuda_elqr_backward"),
+         "K13": (ce, "cuda_elqr_rollout")}, lambda: solve(x0s, kff_init=kff0))
+    return replay_ms(kept, originals)
 
 
 def elqr_kernel_rows(card, launches, errs, plain_ms, operands, k14, main_ms):
@@ -1936,9 +2042,10 @@ def elqr_phases(device, card, wrappers):
                     "ms_per_solve": scan_ms, "ms_per_iteration_with_rollouts":
                     scan_ms / ELQR_SCAN_TIMED_ITER, "gpu": card}))
     main_ms = elqr_main_path_launch_ms(solve, *runs[N_ELQR_STREAM][:2])
-    log(json.dumps({"metric": "elqr_sweeps_main_path", "config": f"Cartpole-TO-v0 T={T} "
+    log(json.dumps({"metric": "elqr_kernels_main_path", "config": f"Cartpole-TO-v0 T={T} "
                     f"nb_iter={it} N={N_ELQR_STREAM} engine=auto->cuda float32",
-                    "ms_per_launch": main_ms, "gpu": card}))
+                    "ms_per_launch": main_ms,
+                    "spread": {k: spread(v) for k, v in main_ms.items()}, "gpu": card}))
     return elqr_kernel_rows(card, main_launches, errs, plain_ms, operands,
                             (k14_in, ce.cuda_elqr_solve(env, *k14_in, it)), main_ms)
 
@@ -2530,7 +2637,8 @@ def main():
         # call beside it
         call_ms = time_cuda(kernel, 10)
         ms = device_ms_back_to_back(kernel, 10)[0]
-        plain_ms = time_cuda(plain, 1)
+        # one call: the checks above ran the plain version at this shape
+        plain_ms = timed(plain)[1]
         bytes_ms = 1e3 * moved[k] / HBM_BYTES_PER_S
         ops_ms = 1e3 * OPS_PER_STEP[k] * steps[k] / F32_OPS_PER_S
         count = launches[k] if k != "K4" else k4_launches[k]
@@ -2692,16 +2800,18 @@ def main():
     from trajopt_torch.core.cuda_gps import cuda_gps_backward_packed, cuda_gps_forward_kl_packed
 
     wrappers.update(K6=cuda_gps_backward_packed, K7=cuda_gps_forward_kl_packed)
-    dual_packed, dual_alpha, dual_errs = check_gps_kernels(dev)
-    solver_packed, solver_alpha, gps_launches = gps_solver_phase(dev, card, wrappers)
+    dual_packed, dual_alpha, dual_checked = check_gps_kernels(dev)
+    solver_packed, solver_alpha, gps_launches, gps_path_ms = gps_solver_phase(dev, card,
+                                                                                wrappers)
     log("K6/K7 checks: float32 on the solver path's first dual operands, tolerance 1e-4")
-    solver_errs = check_gps_case(f"f32 solver path T={T_GPS} dx=2 du=1", solver_packed,
-                                 solver_alpha, 1e-4)[:2]
+    solver_checked = check_gps_case(f"f32 solver path T={T_GPS} dx=2 du=1", solver_packed,
+                                    solver_alpha, 1e-4)
+    check_k6_exact(solver_packed)
     gps_mpc_phase(dev, card, wrappers)
     gps_rows = gps_kernel_rows("solver path", solver_packed, solver_alpha, gps_launches,
-                               dict(zip(("K6", "K7"), solver_errs)), card)
+                               solver_checked, card, gps_path_ms)
     gps_kernel_rows("dual chain benchmark shape", dual_packed, dual_alpha, gps_launches,
-                    dict(zip(("K6", "K7"), dual_errs)), card)
+                    dual_checked, card)
     rows += [gps_rows["K6"], gps_rows["K7"]]
 
     # 12-15. belief space: K8 against its plain version, the batched solver

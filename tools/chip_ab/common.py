@@ -5,7 +5,11 @@ back, and compare outputs bit for bit.
 
 The scripts run on a machine with a CUDA card, from the root of a checkout:
 
-    python3 tools/chip_ab/<script>.py [--parent DIR] [--out FILE]
+    python3 tools/chip_ab/<script>.py [--kernels SET] [--parent DIR] [--out FILE]
+
+``--kernels`` picks the set of kernels a script measures (each script lists
+its sets, one a redesign: ``K11,K12,K2,K3`` for the eLQR sweeps and K2/K3's
+quotient, ``K6,K7,K13`` for the GPS backward and the eLQR rollout, …).
 
 ``--parent`` names the ``csrc`` directory of the commit to compare against,
 unpacked beforehand, for example with
@@ -32,13 +36,29 @@ WORK = ROOT / "build" / "chip_ab"
 LIB = WORK / "lib"
 NEW = ROOT / "trajopt_torch" / "csrc"
 libs = {}
+reports = {}
 
 
-def args():
+def args(kernel_sets):
+    """The options, ``--kernels`` one of ``kernel_sets`` (the first by default)."""
     p = argparse.ArgumentParser()
+    p.add_argument("--kernels", choices=list(kernel_sets), default=list(kernel_sets)[0])
     p.add_argument("--parent", type=Path, default=WORK / "parent" / "trajopt_torch" / "csrc")
     p.add_argument("--out", type=Path, default=None)
     return p.parse_args()
+
+
+def run(kernel_sets):
+    """Parse the options and run the body ``kernel_sets[--kernels](opts, res)``,
+    ``res`` the results (the card's name, power limit and clocks at the start
+    and the end), dumped to ``--out``."""
+    opts = args(kernel_sets)
+    res = {"card": card()}
+    log(res["card"])
+    kernel_sets[opts.kernels](opts, res)
+    res["card_end"] = card()
+    dump(opts.out, res)
+    log("done; failed:", res.get("failures", []))
 
 
 def log(*a):
@@ -64,7 +84,23 @@ def build_variants(specs):
             raise RuntimeError(f"{label}: nvcc failed\n{txt}")
         regs = [line.strip() for line in txt.splitlines() if "registers" in line]
         log(f"built {label}: " + " | ".join(regs))
+        reports[label] = ptxas_report(txt)
         libs[label] = ctypes.CDLL(str(LIB / f"{label}.so"))
+
+
+def ptxas_report(txt):
+    """{kernel's mangled name: [registers, spill stores, spill loads]} from
+    ``-Xptxas -v``'s output."""
+    out, name = {}, None
+    for line in txt.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(name, [None, None, None])[1:] = nums[1:3]
+        elif name and "Used " in line and "registers" in line:
+            out.setdefault(name, [None, None, None])[0] = int(line.split("Used ")[1].split()[0])
+    return {k: v for k, v in out.items() if k.startswith("_Z") and "kernel" in k}
 
 
 def use(source, label):
@@ -105,10 +141,20 @@ def back_to_back(fn, reps):
     return s.elapsed_time(e) / reps
 
 
+def flat(xs):
+    """The tensors of nested tuples and lists (named tuples too), in order."""
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            yield from flat(x)
+        else:
+            yield x
+
+
 def digest(tensors):
-    """SHA-256 (16 hex digits) of the tensors' bits, NaNs made canonical."""
+    """SHA-256 (16 hex digits) of the tensors' bits (a nested tuple or list of
+    them), NaNs made canonical."""
     h = hashlib.sha256()
-    for t in tensors:
+    for t in flat(tensors):
         t = t.detach()
         if t.is_floating_point():
             t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)

@@ -25,6 +25,7 @@
 
 #include <cuda_runtime.h>
 
+#include "pivot.cuh"
 #include "ring.cuh"
 #include "scalar.cuh"
 
@@ -99,8 +100,12 @@ __device__ __forceinline__ void sym(const S (&A)[N][N], S (&B)[N][N]) {
 
 // Cholesky–Banachiewicz of a symmetric (n, n).  A pivot that is non-positive
 // or non-finite flags the instance, which continues with a unit pivot so the
-// arithmetic after it stays finite (pallas_lqr.py:99-120).
-template <typename S, int N>
+// arithmetic after it stays finite (pallas_lqr.py:99-120).  Pivot: the
+// square root and reciprocal of PivotOps (pivot.cuh), the library's bits for
+// every pivot without its slow-path branches, for K6's factors.  The other
+// callers keep the library's: with PivotOps K7 and K8 read 12–47 % slower
+// and K1 no faster on its main path's launches (PERF.md).
+template <typename S, int N, bool Pivot = false>
 __device__ __forceinline__ bool chol(const S (&A)[N][N], S (&L)[N][N], S (&inv_d)[N]) {
   bool bad = false;
 #pragma unroll
@@ -114,8 +119,13 @@ __device__ __forceinline__ bool chol(const S (&A)[N][N], S (&L)[N][N], S (&inv_d
     }
     const bool good = (s > S(0)) && finite_(s);
     bad = bad || !good;
-    L[j][j] = sqrt_(good ? s : S(1));
-    inv_d[j] = S(1) / L[j][j];
+    if constexpr (Pivot) {
+      L[j][j] = PivotOps::sqrt(good ? s : S(1));
+      inv_d[j] = PivotOps::rcp(L[j][j]);
+    } else {
+      L[j][j] = sqrt_(good ? s : S(1));
+      inv_d[j] = S(1) / L[j][j];
+    }
 #pragma unroll
     for (int i = j + 1; i < N; ++i) {
       S r = A[i][j];
@@ -307,10 +317,12 @@ struct StepSlot {
 template <class Producer>
 using Staged = WarpRoles<1, Producer::kWarps>;
 
-// Chunk k of a horizon of T steps: its first (latest) step and its length.
+// Chunk k (of CH steps) of a horizon of T steps walked backward: its first
+// (latest) step and its length.
+template <int CH = kChunk>
 __device__ __forceinline__ void chunk_span(int k, int T, int& t_hi, int& steps) {
-  t_hi = T - 1 - k * kChunk;
-  steps = t_hi + 1 < kChunk ? t_hi + 1 : kChunk;
+  t_hi = T - 1 - k * CH;
+  steps = t_hi + 1 < CH ? t_hi + 1 : CH;
 }
 
 // The carry-dependent chain over one staged chunk, for the instance of lane

@@ -43,11 +43,12 @@
 // agrees with the plain versions (core/cuda_elqr.py) to rounding.
 //
 // The float builds of the sweeps (K11, K12) and of the solve (K14) share one
-// step: the ODE divides with PivotOps::div_moderate (pivot.cuh: a / b's bits
-// for every float numerator over the ODE's divisors, without a branch) and
-// takes ChainOps' sines (a step whose angle passes 105615 is taken again
-// with the library's operations), and the linearization's five tangents go
-// over the lanes: a group of eight lanes per instance, four instances a
+// step, and the evaluation rollout (K13) its RK4: the ODE divides with
+// PivotOps::div_moderate (pivot.cuh: a / b's bits for every float numerator
+// over the ODE's divisors, without a branch) and takes ChainOps' sines (a
+// step whose angle passes 105615 is taken again with the library's
+// operations); in the sweeps and the solve the linearization's five tangents
+// go over the lanes: a group of eight lanes per instance, four instances a
 // warp, one warp a block (K11/K12 at N=1024: 256 warps on the 132 SMs),
 // lane k evaluating the value and tangent k alone (the same operations as
 // tangent k of the five-tangent dual), the Jacobian's columns gathered by
@@ -55,8 +56,11 @@
 // writes the same values to the same places; lanes past the last instance
 // repeat it.  The outputs are bit for bit those of the one-thread,
 // library-operation kernels (PERF.md).  The float64 build keeps one thread
-// an instance and the library's operations, and so does the evaluation
-// rollout K13.
+// an instance and the library's operations.  K13 keeps one thread an
+// instance (its chain has no tangents to spread); its float RK4 is the
+// sweeps', and each step's gains are loaded a step ahead, so neither the
+// library division's slow path on the residue numerators nor the gains'
+// trip to memory sits on its chain.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -93,10 +97,10 @@ __device__ __forceinline__ int group_instance(int N) {
 #define AT(ptr, t, E, e) (ptr)[((size_t)(t) * (E) + (e)) * np + n]
 
 // One RK4 step of the ODE (Backward: the inverse dynamics) on plain or dual
-// scalars.  Fast (the float sweeps, and K14's rollouts): ExactChainOps
-// (envs.cuh), the step taken again with the library's operations where a
-// sine's argument left ChainOps' range, so the bits are the library's either
-// way; otherwise (K13, float64) the library's operations.
+// scalars.  Fast (every float step: the sweeps, the rollouts of K13 and
+// K14): ExactChainOps (envs.cuh), the step taken again with the library's
+// operations where a sine's argument left ChainOps' range, so the bits are
+// the library's either way; otherwise (float64) the library's operations.
 template <class Env, bool Backward, bool Fast, typename T>
 __device__ __forceinline__ void rk4(const EnvParams& p, const T (&x)[Env::DX],
                                     const T (&u)[Env::DU], T (&xn)[Env::DX]) {
@@ -519,7 +523,9 @@ __device__ __forceinline__ void backward_sweep(const EnvParams& p, const S* iK, 
 // The evaluation rollout u = kff + Kx from x0 (pallas_elqr.py
 // _rollout_kernel): the stage cost on the raw action (u_last = 0, a = 1),
 // the dynamics clip inside; stores the states and actions when xs is given.
-template <class Env, bool Fast, typename S>
+// The gains do not depend on the state: step t + 1's are loaded into
+// registers while step t runs, so their trip to memory is off the chain.
+template <class Env, typename S>
 __device__ __forceinline__ S rollout(const EnvParams& p, const S* K, const S* kff,
                                      const S (&x0)[Env::DX], S* xs, S* us, int T, size_t np,
                                      int n) {
@@ -528,10 +534,22 @@ __device__ __forceinline__ S rollout(const EnvParams& p, const S* K, const S* kf
 #pragma unroll
   for (int i = 0; i < DX; ++i) x[i] = x0[i];
   const S zero[DU] = {};
+  S Kn[DU][DX], kn[DU];
+  if (T > 0) {
+    load_mat(K, 0, np, n, Kn);
+    load_vec(kff, 0, np, n, kn);
+  }
   for (int t = 0; t < T; ++t) {
     S Kt[DU][DX], kt[DU], Kx[DU], u[DU], xn[DX];
-    load_mat(K, t, np, n, Kt);
-    load_vec(kff, t, np, n, kt);
+#pragma unroll
+    for (int j = 0; j < DU; ++j) {
+#pragma unroll
+      for (int i = 0; i < DX; ++i) Kt[j][i] = Kn[j][i];
+      kt[j] = kn[j];
+    }
+    const int tn = t + 1 < T ? t + 1 : t;   // the last step loads its own row again
+    load_mat(K, tn, np, n, Kn);
+    load_vec(kff, tn, np, n, kn);
     mv(Kt, x, Kx);
 #pragma unroll
     for (int j = 0; j < DU; ++j) u[j] = kt[j] + Kx[j];
@@ -540,7 +558,7 @@ __device__ __forceinline__ S rollout(const EnvParams& p, const S* K, const S* kf
       store_vec(xs, t, np, n, x);
       store_vec(us, t, np, n, u);
     }
-    rk4<Env, false, Fast>(p, x, u, xn);
+    rk4<Env, false, true>(p, x, u, xn);
 #pragma unroll
     for (int i = 0; i < DX; ++i) x[i] = xn[i];
   }
@@ -588,7 +606,7 @@ __global__ void __launch_bounds__(ELQR_THREADS) elqr_rollout_kernel(
   const size_t np = N;
   S x[Env::DX];
   load_vec(x0, 0, np, n, x);
-  ret[n] = rollout<Env, false>(p, K, kff, x, xs, us, T, np, n);
+  ret[n] = rollout<Env>(p, K, kff, x, xs, us, T, np, n);
 }
 
 // The whole solve (pallas_elqr.py _solve_kernel): K = 0 and kff = kff0, the
@@ -627,16 +645,16 @@ __global__ void __launch_bounds__(ELQR_THREADS) elqr_solve_kernel(
   }
   S xinit[DX], x[DX];
   load_vec(x0, 0, np, n, xinit);
-  AT(rets, 0, 1, 0) = rollout<Env, true>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
+  AT(rets, 0, 1, 0) = rollout<Env>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
 #pragma unroll
   for (int i = 0; i < DX; ++i) x[i] = xinit[i];
   for (int it = 0; it < nb_iter; ++it) {
     forward_sweep<Env>(p, K, kff, goV, gov, iK, ikff, comeV, comev, (S*)nullptr, x, T, np, n);
     backward_sweep<Env>(p, iK, ikff, comeV, comev, K, kff, goV, gov, (S*)nullptr, x, T, np, n);
     AT(rets, it + 1, 1, 0) =
-        rollout<Env, true>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
+        rollout<Env>(p, K, kff, xinit, (S*)nullptr, (S*)nullptr, T, np, n);
   }
-  rollout<Env, true>(p, K, kff, xinit, xs, us, T, np, n);
+  rollout<Env>(p, K, kff, xinit, xs, us, T, np, n);
 }
 
 #undef AT

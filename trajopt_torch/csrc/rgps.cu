@@ -224,24 +224,6 @@ __device__ __forceinline__ void read(const S* p, S (&x)[R]) {
   for (int i = 0; i < R; ++i) x[i] = p[i];
 }
 
-// An element copy from device memory to shared memory (cp.async, 4 or 8
-// bytes: a row's entries of a (steps, entries, N) stream are N apart).
-template <typename S>
-__device__ __forceinline__ void cp_async_elem(S* dst, const S* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(d), "l"(src), "n"(sizeof(S))
-               : "memory");
-}
-
-// Close this thread's group of copies; wait until all its groups but the
-// newest have landed.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_but_newest() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
 // Step t of a (steps, entries, N) stream, row n, into dst (16-byte aligned),
 // by `count` threads from thread `first` on: 16 bytes a copy where the step's
 // entries lie together (N = 1) and fill whole 16-byte pieces, else an entry.

@@ -1,7 +1,8 @@
 // The ring of stages in shared memory that the staged kernels share: K4
 // (ilqr_backward.cu) and K1 (fused_backward.cu) through bwd_step.cuh's
-// staged backward, which walks its chunks backward in time, and K2 and K3
-// (rollout.cu), which walk them forward.
+// staged backward, which walks its chunks backward in time, K2 and K3
+// (rollout.cu), which walk them forward, and K6 (gps.cu), whose ring has
+// three stages.
 //
 // A block splits its warps into consumers, which walk a chain that depends on
 // the step before, one lane per instance (or per α and instance), reading
@@ -45,7 +46,7 @@ struct WarpRoles {
   }
 };
 
-// Named barriers 1 … 2·kStages (0 is __syncthreads') over N threads.  Each
+// Named barriers 1 … 2·S (0 is __syncthreads') over N threads.  Each
 // helper first reconverges the warp: bar is warp-aligned.
 template <int N>
 __device__ __forceinline__ void named_sync(int id) {
@@ -57,25 +58,27 @@ __device__ __forceinline__ void named_arrive(int id) {
   __syncwarp();
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(N) : "memory");
 }
+// S is the ring's number of stages (kStages unless a kernel sizes its own).
 __device__ __forceinline__ int full_barrier(int stage) { return 1 + stage; }
-__device__ __forceinline__ int empty_barrier(int stage) { return 1 + kStages + stage; }
+template <int S = kStages>
+__device__ __forceinline__ int empty_barrier(int stage) { return 1 + S + stage; }
 
-// The four hand-overs of chunk k (of `chunks`), in stage k mod kStages.
+// The four hand-overs of chunk k (of `chunks`), in stage k mod S.
 // Consumers: wait until it is filled, and free it once consumed (the last
-// kStages chunks are never refilled, so nobody waits for them).
-template <int N>
-__device__ __forceinline__ void ring_acquire(int k) { named_sync<N>(full_barrier(k % kStages)); }
-template <int N>
+// S chunks are never refilled, so nobody waits for them).
+template <int N, int S = kStages>
+__device__ __forceinline__ void ring_acquire(int k) { named_sync<N>(full_barrier(k % S)); }
+template <int N, int S = kStages>
 __device__ __forceinline__ void ring_release(int k, int chunks) {
-  if (k + kStages < chunks) named_arrive<N>(empty_barrier(k % kStages));
+  if (k + S < chunks) named_arrive<N>(empty_barrier<S>(k % S));
 }
 // Producers: wait until the stage is free, and publish it once filled.
-template <int N>
+template <int N, int S = kStages>
 __device__ __forceinline__ void ring_reserve(int k) {
-  if (k >= kStages) named_sync<N>(empty_barrier(k % kStages));
+  if (k >= S) named_sync<N>(empty_barrier<S>(k % S));
 }
-template <int N>
-__device__ __forceinline__ void ring_publish(int k) { named_arrive<N>(full_barrier(k % kStages)); }
+template <int N, int S = kStages>
+__device__ __forceinline__ void ring_publish(int k) { named_arrive<N>(full_barrier(k % S)); }
 
 // A 16-byte copy from device memory to shared memory that bypasses L1, and
 // the wait for all of this thread's copies to land.
@@ -83,8 +86,24 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
 }
+// An element copy from device memory to shared memory (cp.async, 4 or 8
+// bytes: a row's entries of a (steps, entries, N) stream are N apart).
+template <typename S>
+__device__ __forceinline__ void cp_async_elem(S* dst, const S* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(d), "l"(src), "n"(sizeof(S))
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+}
+// Close this thread's group of copies; wait until all its groups but the
+// newest have landed.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_but_newest() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
 }
 
 // Launch a staged kernel: raise its dynamic shared memory limit to the
