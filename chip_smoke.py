@@ -49,9 +49,9 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    float64 at N=50, T=48 for (dx, du) = (2, 1) and (4, 2) with
    α ∈ {1e-16, 1, 1e16}; a non-PD −Quu (equal flags, finite outputs);
    float32 at the dual chain's benchmark shape (T=1000, N=4096, dx=4, du=2,
-   α=10) and on the solver path's first dual operands; K6 there bit for bit
-   (its first 64 instances, α ∈ {1e-16, 1, 1e16}, against its plain version
-   on the card; c₀ within 1e-5);
+   α=10) and on the solver path's first dual operands; K6 and K7 there bit
+   for bit (the first 64 instances, α ∈ {1e-16, 1, 1e16}, against their
+   plain versions on the card; K6's c₀ and K7's KL sum within 1e-5);
 10. the GPS solver path: make_mbgps_solver_batched on Pendulum-TO-v0,
    dt=0.05, T=100, N=4096, 10 iterations of 64 bisection steps, float32,
    engine="cuda"; exactly 640 launches each of K6 and K7, finite traces, no
@@ -69,12 +69,16 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    float64 at N=37, T=9 for (b, a) = (2, 2) and (4, 2), reg ∈ {1, 2}, λ
    alternating 0 and 3.7, instance 0 not positive definite (flags equal,
    non-finite places equal); float32 at bench.py:511's shape (LightDark's
-   dims, T=25, N=4096) and on the batched solver's first backward operands;
+   dims, T=25, N=4096) and on the batched solver's first backward operands,
+   there also bit for bit on the first 64 instances for reg ∈ {1, 2}
+   (against its plain version on the card);
 13. the batched BSP solver: make_bsp_solver_batched on LightDark-TO-v0,
    T=25, N=4096, 10 iterations, engine="cuda": one K8 launch per λ trial the
    solver ran, finite
    traces, the scan engine on the first 64 instances within rtol/atol 1e-4;
-   ms per outer iteration; K8's device time, bound and plain time;
+   ms per outer iteration; K8's device time, bound and plain time, and its
+   device time on each of the solve's own launches (operands kept,
+   launches replayed back to back);
 14. kernel K9 (a whole BSP-iLQR solve in one launch) against its plain
    version, float64 and float32, horizon 25, 10 iterations, for the default,
    reg=2 and goal weights mu_w=(-2, -2); then make_cuda_bsp_solve as a user
@@ -204,6 +208,10 @@ T_DUAL, N_DUAL = 1000, 4096
 # (MKL's vector math) misses the correctly rounded root by an ulp on about 1%
 # of arguments, and the card's is correctly rounded (PERF.md).
 K6_EXACT_N, K6_EXACT_ALPHAS, K6_EXACT_C0_TOL = 64, (1e-16, 1.0, 1e16), 1e-5
+# K7 the same way on K6's controller there: μ_T and Σ_T (products and sums
+# only) equal, the KL sum, which sums logf, within K7_EXACT_KL_TOL of the
+# largest entry.
+K7_EXACT_KL_TOL = 1e-5
 
 # The belief paths: K8 at bench.py's backward row (bench.py:511: LightDark's
 # dims, T=25, batch 4096) and the batched solver at that shape, 10
@@ -212,6 +220,12 @@ K6_EXACT_N, K6_EXACT_ALPHAS, K6_EXACT_C0_TOL = 64, (1e-16, 1.0, 1e16), 1e-5
 # (horizon 25, 50 control steps, 10 iterations), K10 held against its plain
 # version and the scan runner over the first 3 steps in float64.
 T_BSP, N_BSP, BSP_ITER, BSP_STEPS = 25, 4096, 10, 50
+# K8 held bit for bit in float32 to its plain version on the card (the same
+# IEEE operations in the same order: the pivots' sqrtf and 1/d are correctly
+# rounded there as in the kernel) on the first K8_EXACT_N instances of the
+# batched solver's first backward operands, reg 1 and 2: K, kff, S, s, τ and
+# dS equal (NaN in the same places), the flags equal.
+K8_EXACT_N = 64
 N_BSP_SCAN, BSP_CHECK_STEPS = 64, 3
 
 # The eLQR paths: bench.py:390-420 (Cartpole-TO-v0, T=100, 10 iterations, batch
@@ -1143,6 +1157,39 @@ def check_k6_exact(packed):
         fail(f"K6 exact c0: relative error {err / scale:.3e} above {K6_EXACT_C0_TOL:.0e}")
 
 
+def check_k7_exact(packed):
+    """K7 in float32 on the first K6_EXACT_N instances of the solver path's
+    first dual operands, on K6's controller there (α ∈ K6_EXACT_ALPHAS in
+    turn), against its plain version on the same card: μ_T and Σ_T equal
+    (NaN in the same places), the KL sum within K7_EXACT_KL_TOL of the
+    largest entry, non-finite in the same places."""
+    from trajopt_torch.core import cuda_gps
+
+    n = K6_EXACT_N
+    part = {k: v[..., :n].contiguous() for k, v in packed.items()}
+    T = part["cx"].shape[0]
+    alphas = torch.tensor(K6_EXACT_ALPHAS, dtype=torch.float32)
+    alpha_l = cuda_gps.pack_gps_alpha(alphas[torch.arange(n) % len(alphas)][:, None]
+                                      .expand(n, T).contiguous()).to(part["cx"].device)
+    log(f"K7 check: float32, exact, the solver path's first dual operands, N={n}, T={T}, "
+        f"α ∈ {K6_EXACT_ALPHAS}, on K6's controller, against the plain version")
+    ctl = cuda_gps.cuda_gps_backward_packed(part, alpha_l)[:3]
+    got = [t.cpu() for t in cuda_gps.cuda_gps_forward_kl_packed(part, *ctl)]
+    ref = [t.cpu() for t in cuda_gps.gps_forward_kl_plain(part, *ctl)]
+    for name, g, r in zip(("muT", "sigmaT"), got[1:], ref[1:]):
+        same_bits(f"K7 exact {name}", g, r)
+    g, r = got[0].double(), ref[0].double()
+    if not torch.equal(torch.isfinite(g), torch.isfinite(r)):
+        fail("K7 exact kl: non-finite entries in other places")
+    fin = torch.isfinite(r)
+    err = (g[fin] - r[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    scale = max(r[fin].abs().max().item() if bool(fin.any()) else 0.0, 1e-30)
+    log(f"  K7 exact kl: max_abs_err={err:.3e} max_rel_err={err / scale:.3e} "
+        f"(tol {K7_EXACT_KL_TOL:.0e}), {int((~fin).sum())} of {n} not finite")
+    if not err / scale <= K7_EXACT_KL_TOL:
+        fail(f"K7 exact kl: relative error {err / scale:.3e} above {K7_EXACT_KL_TOL:.0e}")
+
+
 def gps_mpc_phase(device, card, wrappers):
     """The GPS-MPC farm through run_gps_mpc_batch (batched, engine="cuda"):
     finite costs, K6/K7 launched; the first episodes' first steps against the
@@ -1346,6 +1393,25 @@ def check_k8_case(label, packed, lam, reg, tol, flagged):
     return errs[0]
 
 
+def check_k8_exact(packed, lam):
+    """K8 in float32 on the first K8_EXACT_N instances of ``packed`` with
+    their λ, reg 1 and 2, against its plain version on the same card:
+    every output equal (NaN in the same places), the flags equal."""
+    from trajopt_torch.core import cuda_belief
+
+    n = K8_EXACT_N
+    part = {k: v[..., :n].contiguous() for k, v in packed.items()}
+    lam = lam[:n].contiguous()
+    for reg in (1, 2):
+        log(f"K8 check: float32, exact, the batched solver's first backward operands, N={n}, "
+            f"T={part['q'].shape[0]}, reg={reg}, against the plain version")
+        got = [t.cpu() for t in cuda_belief.cuda_bsp_backward_packed(part, lam, reg)]
+        ref = [t.cpu() for t in cuda_belief.bsp_backward_plain(part, lam, reg)]
+        for name, g, r in zip(("K", "kff", "S", "s", "tau", "dS"), got, ref):
+            same_bits(f"K8 exact reg={reg} {name}", g, r)
+        same_flags(f"K8 exact reg={reg} diverged", got[6], ref[6])
+
+
 def check_k8(device):
     """K8 against its plain version: float64 at small sizes for (b, a) = (2,
     2) and (4, 2), reg ∈ {1, 2}, λ alternating 0 and 3.7, instance 0 not
@@ -1368,7 +1434,7 @@ def check_k8(device):
     return packed, lam, err
 
 
-def k8_row(label, packed, lam, launches, err, card):
+def k8_row(label, packed, lam, launches, err, card, path_ms=None):
     from trajopt_torch.core import cuda_belief
 
     T, b, N = packed["q"].shape
@@ -1389,19 +1455,19 @@ def k8_row(label, packed, lam, launches, err, card):
         # no single PyTorch call computes a belief-value recursion
         "library_ms": None,
     }
+    if path_ms is not None:
+        row["ms_main_path"] = spread(path_ms)
     log(json.dumps({"metric": "kernel", "shape": f"{label}, T={T} N={N} b={b} a={a}", **row,
                     "enqueue_ms_per_call": enqueue_ms / 20, "bytes": moved, "operations": ops,
                     "bytes_ms": bytes_ms, "ops_ms": ops_ms, "gpu": card}))
     return row
 
 
-def bsp_solver_phase(device, card, wrappers):
-    """make_bsp_solver_batched with engine="cuda" on LightDark at N=4096,
-    T=25, 10 iterations: the K8 launches, finite traces, the scan engine on
-    the first 64 instances; ms per outer iteration; the first iteration's K8
-    operands."""
+def bsp_path(device):
+    """The batched BSP solver path's problem: LightDark-TO-v0 from seeded
+    initial means, the env's Σ₀; returns (env, solver(engine), μ₀s, Σ₀s),
+    float32 on ``device``, BSP_ITER iterations at T_BSP, N_BSP."""
     import trajopt_torch
-    from trajopt_torch.core.cuda_belief import pack_belief
     from trajopt_torch.parallel.bsp import make_bsp_solver_batched
 
     env = trajopt_torch.make("LightDark-TO-v0")
@@ -1414,13 +1480,28 @@ def bsp_solver_phase(device, card, wrappers):
     def solver(engine):
         return make_bsp_solver_batched(env, T_BSP, nb_iter=BSP_ITER, engine=engine, **kw)
 
+    return env, solver, mu0s, sigma0s
+
+
+def bsp_solver_phase(device, card, wrappers):
+    """make_bsp_solver_batched with engine="cuda" on LightDark at N=4096,
+    T=25, 10 iterations: the K8 launches, finite traces, the scan engine on
+    the first 64 instances; ms per outer iteration; the first iteration's K8
+    operands."""
+    import trajopt_torch.parallel.bsp as bsp_module
+    from trajopt_torch.core.cuda_belief import pack_belief
+
+    env, solver, mu0s, sigma0s = bsp_path(device)
     solve = solver("cuda")
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    state, trace = solve(mu0s, sigma0s)
-    torch.cuda.synchronize()
+    # the solve's own K8 launches, kept (operands by reference) to be replayed
+    out = []
+    kept, originals = kept_launches({"K8": (bsp_module, "cuda_bsp_backward_packed")},
+                                    lambda: out.append(solve(mu0s, sigma0s)))
     first_s = time.perf_counter() - t0
+    state, trace = out[0]
     launches = {k: w.launches for k, w in wrappers.items()}
     log(json.dumps({"bsp_solver_launches": launches, "lambda_trials": solve.trials,
                     "first_solve_s": first_s}))
@@ -1460,12 +1541,17 @@ def bsp_solver_phase(device, card, wrappers):
         "instance_iterations_per_s": N_BSP * 1e3 / iter_ms,
         "k8_launches_per_outer_iteration": launches["K8"] / BSP_ITER,
         "first_solve_s": first_s, "gpu": card}))
+    path_ms = replay_ms(kept, originals)["K8"]
+    del kept
+    log(json.dumps({"metric": "bsp_kernel_solver_path", "config": f"one solve, {BSP_ITER} "
+                    f"iterations, T={T_BSP} N={N_BSP} b=a=2 float32", "spread": spread(path_ms),
+                    "ms_per_launch": path_ms, "gpu": card}))
     from trajopt_torch.core.belief import belief_cost_expansion, belief_dynamics_expansion
 
     dyn = belief_dynamics_expansion(env, state0.bref_mu[:, :T_BSP], state0.bref_sigma[:, :T_BSP],
                                     state0.uref)
     cost = belief_cost_expansion(env, state0.bref_mu, state0.bref_sigma, state0.uref)
-    return pack_belief(cost, dyn), state0.lmbda.contiguous(), launches["K8"]
+    return pack_belief(cost, dyn), state0.lmbda.contiguous(), launches["K8"], path_ms
 
 
 class PlainBSP:
@@ -2807,6 +2893,7 @@ def main():
     solver_checked = check_gps_case(f"f32 solver path T={T_GPS} dx=2 du=1", solver_packed,
                                     solver_alpha, 1e-4)
     check_k6_exact(solver_packed)
+    check_k7_exact(solver_packed)
     gps_mpc_phase(dev, card, wrappers)
     gps_rows = gps_kernel_rows("solver path", solver_packed, solver_alpha, gps_launches,
                                solver_checked, card, gps_path_ms)
@@ -2823,14 +2910,15 @@ def main():
     wrappers.update(K8=cuda_bsp_backward_packed, K9=cuda_bsp_solve, K10=cuda_bsp_episode)
     log(f"[{time.perf_counter() - t_start:.0f} s] belief phases")
     bench_packed, bench_lam, k8_err = check_k8(dev)
-    solver_packed, solver_lam, k8_launches = bsp_solver_phase(dev, card, wrappers)
+    solver_packed, solver_lam, k8_launches, k8_path_ms = bsp_solver_phase(dev, card, wrappers)
     log("K8 checks: float32 on the batched solver's first backward operands, tolerance 1e-4")
     solver_err = check_k8_case(f"f32 solver path T={T_BSP} N={N_BSP}", solver_packed,
                                solver_lam, 1, 1e-4, None)
+    check_k8_exact(solver_packed, solver_lam)
     k8_row("bench backward shape (bench.py:511)", bench_packed, bench_lam, k8_launches, k8_err,
            card)
     rows.append(k8_row("batched solver's first backward", solver_packed, solver_lam,
-                       k8_launches, solver_err, card))
+                       k8_launches, solver_err, card, k8_path_ms))
     log(f"[{time.perf_counter() - t_start:.0f} s] K9 checks")
     rows.append(k9_phase(dev, card, wrappers, check_k9(dev)))
     log(f"[{time.perf_counter() - t_start:.0f} s] belief-MPC episode")

@@ -1,15 +1,15 @@
 """The single-launch solve wrappers (K14 eLQR solve, K9 BSP solve, K10
 belief-MPC episode), the eLQR sweep and rollout wrappers (K11 cost-to-come,
 K12 cost-to-go, K13 evaluation rollout) and the GPS dual chain's wrappers
-(K6 backward, K7 forward KL) refuse a tensor on a device that is neither the
-CPU nor CUDA (here: meta) before any build or launch: no fallback to the
-plain version, no launch counted.  Torch only, no JAX reference."""
+(K6 backward, K7 forward KL) and the belief-value backward (K8) refuse a
+tensor on a device that is neither the CPU nor CUDA (here: meta) before any
+build or launch: no fallback to the plain version, no launch counted.  Torch only, no JAX reference."""
 
 import pytest
 import torch
 
 import trajopt_torch
-from trajopt_torch.core import cuda_bsp, cuda_elqr, cuda_gps
+from trajopt_torch.core import cuda_belief, cuda_bsp, cuda_elqr, cuda_gps
 from trajopt_torch.kernels import _build
 
 torch.set_num_threads(1)
@@ -29,15 +29,26 @@ def _gps_packed(T, dx, du, N):
     return {k: _meta(*v) for k, v in shapes.items()}
 
 
+def _belief_packed(T, b, a, N):
+    """K8's packed streams (cuda_belief.pack_belief's layout) on the meta device."""
+    bb = b * b
+    shapes = dict(Q=b * b, q=b, R=a * a, r=a, P=b * a, p=bb, F=b * b, G=b * a, X=bb * b,
+                  Y=bb * bb, Z=bb * a, T=bb * b, U=bb * bb, V=bb * a)
+    packed = {k: _meta(T, n, N) for k, n in shapes.items()}
+    packed.update(QT=_meta(b * b, N), qT=_meta(b, N), pT=_meta(bb, N))
+    return packed
+
+
 def _launches():
     return (cuda_elqr.cuda_elqr_solve.launches, cuda_elqr.cuda_elqr_forward.launches,
             cuda_elqr.cuda_elqr_backward.launches, cuda_bsp.cuda_bsp_solve.launches,
             cuda_bsp.cuda_bsp_episode.launches, cuda_elqr.cuda_elqr_rollout.launches,
             cuda_gps.cuda_gps_backward_packed.launches,
-            cuda_gps.cuda_gps_forward_kl_packed.launches)
+            cuda_gps.cuda_gps_forward_kl_packed.launches,
+            cuda_belief.cuda_bsp_backward_packed.launches)
 
 
-@pytest.mark.parametrize("kernel", ["K14", "K11", "K12", "K9", "K10", "K6", "K7", "K13"])
+@pytest.mark.parametrize("kernel", ["K14", "K11", "K12", "K9", "K10", "K6", "K7", "K13", "K8"])
 def test_solve_wrappers_refuse_non_cuda_devices(kernel, monkeypatch):
     def no_build(*args, **kw):
         raise AssertionError(f"{kernel}: a kernel was built or loaded for a meta tensor")
@@ -67,6 +78,8 @@ def test_solve_wrappers_refuse_non_cuda_devices(kernel, monkeypatch):
         elif kernel == "K7":
             cuda_gps.cuda_gps_forward_kl_packed(_gps_packed(T, 2, 1, 3), _meta(T, 2, 3),
                                                 _meta(T, 1, 3), _meta(T, 1, 3))
+        elif kernel == "K8":
+            cuda_belief.cuda_bsp_backward_packed(_belief_packed(T, 2, 2, 3), _meta(3), 1)
         elif kernel == "K13":
             env = trajopt_torch.make("Cartpole-TO-v0")
             cuda_elqr.cuda_elqr_rollout(env, _meta(T, 4, 2), _meta(T, 1, 2), _meta(4, 2))

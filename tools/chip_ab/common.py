@@ -9,7 +9,8 @@ The scripts run on a machine with a CUDA card, from the root of a checkout:
 
 ``--kernels`` picks the set of kernels a script measures (each script lists
 its sets, one a redesign: ``K11,K12,K2,K3`` for the eLQR sweeps and K2/K3's
-quotient, ``K6,K7,K13`` for the GPS backward and the eLQR rollout, …).
+quotient, ``K6,K7,K13`` for the GPS backward and the eLQR rollout, ``K7,K8``
+for the GPS forward KL and the belief-value backward, …).
 
 ``--parent`` names the ``csrc`` directory of the commit to compare against,
 unpacked beforehand, for example with
@@ -22,6 +23,7 @@ import ctypes
 import hashlib
 import inspect
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -70,12 +72,18 @@ def card():
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
+def lib_path(label):
+    """The shared library of a build label (its characters other than
+    letters, digits, '.' and '-' made '_', which nvcc's file names allow)."""
+    return LIB / (re.sub(r"[^\w.-]", "_", label) + ".so")
+
+
 def build_variants(specs):
     """Compile ``{label: source .cu path}`` with the package's nvcc flags, all
     in parallel, and load each library under its label."""
     LIB.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
-    procs = {label: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(LIB / f"{label}.so"), str(src)],
+    procs = {label: subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(lib_path(label)), str(src)],
                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for label, src in specs.items()}
     for label, p in procs.items():
@@ -85,7 +93,7 @@ def build_variants(specs):
         regs = [line.strip() for line in txt.splitlines() if "registers" in line]
         log(f"built {label}: " + " | ".join(regs))
         reports[label] = ptxas_report(txt)
-        libs[label] = ctypes.CDLL(str(LIB / f"{label}.so"))
+        libs[label] = ctypes.CDLL(str(lib_path(label)))
 
 
 def ptxas_report(txt):

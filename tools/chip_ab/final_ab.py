@@ -29,18 +29,36 @@ N=1024 solve and a GPS outer iteration under torch.profiler; clock64 stamps
 of this tree's K6 and K13; registers and spills.
 
 ``--kernels K1,K4,K5,K6,K7,K8`` (the kernels that factor through
-bwd_step.cuh's guarded Cholesky): bit for bit K1 and K4 at chip_smoke.py's
+bwd_step.cuh's guarded Cholesky; this tree against the parent and against
+this tree with ``chol``'s ``Pivot`` flag on for every caller): bit for bit
+K1 and K4 at chip_smoke.py's
 main-path shape (Cartpole, N=2048, T=1000, float32, reg 1 and 2) and small
 (N=50, T=45, float64) and K1 on each of its 20 launches of one main-path
 solve; K5 on the replan's first backward (Pendulum, T=100), the T=1000
 4/2 problem and chip_smoke.py's float64 and non-PD problems; K6 and K7 on
 the GPS path's 64 launches each, at the dual chain's shape and on small
 float32/float64 problems at dims 2/1, 4/1, 4/2 with α ∈ {1e-16, 1, 1e16};
-K8 at the bench's backward shape (T=25, N=4096) and chip_smoke.py's float64
-problems with a non-PD instance.  Then in turns (parent, tree, tree,
-parent) each kernel's device ms there (K1 also on its main-path launches,
-K5 from torch.profiler), and the iLQR main path's ms per batch-iteration;
-registers and spills.
+K8 at the bench's backward shape (T=25, N=4096), at Car's (4, 2), on each
+launch of one batched BSP solve and on chip_smoke.py's float64 problems
+with a non-PD instance.  Then in turns (tree, PivotOps everywhere, the
+same, tree) each kernel's device ms there (K1, K6, K7 and K8 also on their
+paths' launches, K5 from torch.profiler), and the iLQR main path's ms per
+batch-iteration; registers and spills.
+
+``--kernels K7,K8`` (the GPS forward KL and the belief-value backward):
+bit for bit K6 and K7 on each of the 64 launches of one GPS outer iteration,
+K7 at α = 1, both at the dual chain's shape and on the small float32/float64
+problems (dims 2/1, 4/1, 4/2, α ∈ {1e-16, 1, 1e16}, N = 50, 3 and 4096,
+non-PD); K8 on every launch of one batched BSP solve (LightDark, T=25,
+N=4096, 10 iterations), at bench.py:511's shape and Car's (4, 2) for reg 1
+and 2, and on chip_smoke.py's float32/float64 problems at (2, 2) and (4, 2)
+(N=37, reg 1 and 2, λ 0 and 3.7, instance 0 non-PD).  Then chip_smoke.py's
+exact K6, K7 and K8 cases on both builds and its K6/K7 and K8 checks on this
+tree; in turns (parent, tree, tree, parent) K6/K7 on the GPS path's
+launches, K7 at α = 1, K6/K7 at the dual chain, K8 on the BSP path's
+launches, at bench.py:511 and at Car's (4, 2), the GPS and BSP outer
+iterations; a GPS outer iteration under torch.profiler; clock64 stamps of
+this tree's K6, K7 and K8 walks; registers and spills.
 
 Every failed check or unequal output is listed under ``failures``.  See
 common.py for how to run it."""
@@ -52,11 +70,13 @@ import numpy as np
 
 import common as C
 from common import log, torch
-from patches import CHUNK_COUNT, DIV_COUNT, K13_NO_PREFETCH, K13_STAMP_NAMES, NEW_K6_STAMPS, \
-    k13_stamps, new_k6_report, stamp_report, stamps_per_step, sweep_stamps
+from patches import ALWAYS_PIVOT, BELIEF_WALK_STAMPS, CHUNK_COUNT, DIV_COUNT, GPS_WALK_STAMPS, K13_NO_PREFETCH, \
+    K13_STAMP_NAMES, NEW_K6_STAMPS, WALK_K6_NAMES, WALK_K7_NAMES, WALK_K8_NAMES, k13_stamps, \
+    new_k6_report, stamp_report, stamps_per_step, sweep_stamps, walk_report
 
 import chip_smoke
 import trajopt_torch
+import trajopt_torch.parallel.bsp as bsp_module
 import trajopt_torch.parallel.gps as gps_module
 import trajopt_torch.parallel.mpc as mpcmod
 from trajopt_torch.core import cuda_belief as cb, cuda_elqr as ce, cuda_fused as cf, \
@@ -475,8 +495,9 @@ def pivots(opts, res):
     res["failures"] = []
     sources = {"fused_backward.cu": "K1", "ilqr_backward.cu": "K4", "pscan_backward.cu": "K5",
                "gps.cu": "K6/K7", "belief.cu": "K8"}
+    piv = C.patched_copy(C.NEW, ALWAYS_PIVOT, "ab_pivot")
     C.build_variants({f"{src} {lab}": d / src for src in sources
-                      for lab, d in (("par", par), ("new", C.NEW))})
+                      for lab, d in (("par", par), ("new", C.NEW), ("pivot", piv))})
     res["ptxas"] = C.reports
 
     def use(lab):
@@ -485,10 +506,10 @@ def pivots(opts, res):
 
     def bits(call):
         out = []
-        for lab in ("par", "new"):
+        for lab in ("par", "new", "pivot"):
             use(lab)
             out.append(C.digest(call()))
-        return out[0] == out[1]
+        return len(set(out)) == 1
 
     same, calls = {}, {}
     # K1 and K4: the main-path shape (float32) and a small float64 one
@@ -558,6 +579,18 @@ def pivots(opts, res):
     equal(res, f"K8 f32 T={chip_smoke.T_BSP} N={chip_smoke.N_BSP}", same,
           bits(lambda: cb.cuda_bsp_backward_packed(bpacked, blam, 1)))
     calls["K8"] = lambda: cb.cuda_bsp_backward_packed(bpacked, blam, 1)
+    car = cb.pack_belief(*chip_smoke.belief_problem(chip_smoke.N_BSP, chip_smoke.T_BSP, 4, 2, 3,
+                                                    torch.float32, dev))
+    lam_car = torch.full((chip_smoke.N_BSP,), 0.1, **f32)
+    equal(res, "K8 Car (4, 2) f32 T=25 N=4096", same,
+          bits(lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1)))
+    calls["K8 Car (4, 2)"] = lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1)
+    _, bsolver, bmu0s, bsigma0s = chip_smoke.bsp_path(dev)
+    use("new")
+    bkept, boriginals = chip_smoke.kept_launches(
+        {"K8": (bsp_module, "cuda_bsp_backward_packed")}, lambda: bsolver("cuda")(bmu0s, bsigma0s))
+    equal(res, f"K8 BSP path launches ({len(bkept['K8'])})", same,
+          [bits(lambda: boriginals["K8"](*a, **kw)) for a, kw in bkept["K8"]])
     lam64 = torch.as_tensor(np.where(np.arange(37) % 2, 3.7, 0.0), dtype=torch.float64, device=dev)
     for b in (2, 4):
         for reg in (1, 2):
@@ -568,11 +601,11 @@ def pivots(opts, res):
     res["bits_equal_parent"] = same
     log(json.dumps(same))
 
-    # in turns
+    # in turns: this tree and this tree with PivotOps in every chol
     res["turns"] = {}
-    for lab in ("par", "new", "new", "par"):
+    for lab in ("new", "pivot", "pivot", "new"):
         use(lab)
-        path = chip_smoke.replay_ms({**kept, **k1_kept}, {**originals, **k1_orig})
+        path = chip_smoke.replay_ms({**kept, **k1_kept, **bkept}, {**originals, **k1_orig, **boriginals})
         d = {k: C.back_to_back(fn, 5 if "dual" in k else 20) for k, fn in calls.items()}
         d.update({f"{k} path": chip_smoke.spread(v) for k, v in path.items()})
         d.update({f"K5 {key}": chip_smoke.device_ms_per_launch(
@@ -583,5 +616,163 @@ def pivots(opts, res):
         log(lab, json.dumps(d))
 
 
+def belief_problems():
+    """(label, packed, λ, reg) of K8's small cases: float32 and float64 at
+    (b, a) = (2, 2) and (4, 2), N=37, T=9, reg 1 and 2, λ alternating 0 and
+    3.7, instance 0 not positive definite."""
+    for dt in (torch.float32, torch.float64):
+        lam = torch.as_tensor(np.where(np.arange(37) % 2, 3.7, 0.0), dtype=dt, device=dev)
+        for b in (2, 4):
+            for reg in (1, 2):
+                p = cb.pack_belief(*chip_smoke.belief_problem(37, 9, b, 2, b + reg, dt, dev, bad=True))
+                yield f"{str(dt)[6:]} b={b} reg={reg} N=37 non-PD", p, lam, reg
+
+
+def kl_belief(opts, res):
+    par = opts.parent
+    res["failures"] = []
+    C.build_variants({"gps par": par / "gps.cu", "gps new": C.NEW / "gps.cu",
+                      "belief par": par / "belief.cu", "belief new": C.NEW / "belief.cu"})
+    try:
+        C.build_variants({
+            "gps stamped": C.patched_copy(C.NEW, GPS_WALK_STAMPS, "ab_gps_walk") / "gps.cu",
+            "belief stamped": C.patched_copy(C.NEW, BELIEF_WALK_STAMPS, "ab_belief_walk") / "belief.cu"})
+    except RuntimeError as e:
+        log(f"stamped builds failed: {e}")
+    res["ptxas"] = {k: {n: v for n, v in r.items() if "gps" in n or "bsp" in n}
+                    for k, r in C.reports.items()}
+    log(json.dumps(res["ptxas"]))
+    gps, bel = ("gps par", "gps new"), ("belief par", "belief new")
+    same = {}
+
+    # K6 and K7 bit for bit: the GPS path's launches, α = 1, the dual chain, small problems
+    solver, mu0s, sigma0s, kff0 = chip_smoke.gps_path(dev)
+    solve = solver("cuda", 1)
+    C.use("gps.cu", "gps new")
+    state0 = solve.init(mu0s, sigma0s, kff_init=kff0)
+    kept, originals = chip_smoke.kept_launches(
+        {"K6": (gps_module, "cuda_gps_backward_packed"),
+         "K7": (gps_module, "cuda_gps_forward_kl_packed")}, lambda: solve.iteration(state0))
+    for k in ("K6", "K7"):
+        equal(res, f"{k} GPS path launches (64)", same,
+              [same_bits("gps.cu", gps, lambda: originals[k](*a, **kw)) for a, kw in kept[k]])
+    packed = cg.pack_gps(state0.cost, state0.dyn, state0.ctl, mu0s, sigma0s)
+    alpha1 = cg.pack_gps_alpha(torch.ones(chip_smoke.N_GPS, chip_smoke.T_GPS, **f32))
+    k6_first = cg.cuda_gps_backward_packed(packed, alpha1)
+    equal(res, "K7 solver path α = 1", same,
+          same_bits("gps.cu", gps, lambda: cg.cuda_gps_forward_kl_packed(packed, *k6_first[:3])))
+    cost, dyn, old, alpha, mu0, sig0 = chip_smoke.gps_dual_operands(chip_smoke.T_DUAL, 4, 2,
+                                                                     chip_smoke.N_DUAL, dev)
+    dual, dual_alpha = cg.pack_gps(cost, dyn, old, mu0, sig0), cg.pack_gps_alpha(alpha)
+    k6d = cg.cuda_gps_backward_packed(dual, dual_alpha)
+    equal(res, "K6 dual chain T=1000 N=4096 4/2", same,
+          same_bits("gps.cu", gps, lambda: cg.cuda_gps_backward_packed(dual, dual_alpha)))
+    equal(res, "K7 dual chain T=1000 N=4096 4/2", same,
+          same_bits("gps.cu", gps, lambda: cg.cuda_gps_forward_kl_packed(dual, *k6d[:3])))
+    for key, p, al in small_gps_problems(with_4096=True):
+        C.use("gps.cu", "gps par")
+        k6s = cg.cuda_gps_backward_packed(p, al)
+        equal(res, f"K6 {key}", same, same_bits("gps.cu", gps, lambda: cg.cuda_gps_backward_packed(p, al)))
+        equal(res, f"K7 {key}", same,
+              same_bits("gps.cu", gps, lambda: cg.cuda_gps_forward_kl_packed(p, *k6s[:3])))
+
+    # K8 bit for bit: the BSP solve's launches, bench.py:511, Car's (4, 2), small problems
+    _, bsolver, bmu0s, bsigma0s = chip_smoke.bsp_path(dev)
+    bsolve = bsolver("cuda")
+    C.use("belief.cu", "belief new")
+    bkept, boriginals = chip_smoke.kept_launches({"K8": (bsp_module, "cuda_bsp_backward_packed")},
+                                                 lambda: bsolve(bmu0s, bsigma0s))
+    equal(res, f"K8 BSP path launches ({len(bkept['K8'])})", same,
+          [same_bits("belief.cu", bel, lambda: boriginals["K8"](*a, **kw)) for a, kw in bkept["K8"]])
+    bcost, bdyn, blam = chip_smoke.bench_belief_problem(chip_smoke.T_BSP, chip_smoke.N_BSP, dev)
+    bench = cb.pack_belief(bcost, bdyn)
+    car = cb.pack_belief(*chip_smoke.belief_problem(chip_smoke.N_BSP, chip_smoke.T_BSP, 4, 2, 3,
+                                                    torch.float32, dev))
+    lam_car = torch.full((chip_smoke.N_BSP,), 0.1, **f32)
+    for reg in (1, 2):
+        equal(res, f"K8 bench.py:511 reg={reg}", same,
+              same_bits("belief.cu", bel, lambda: cb.cuda_bsp_backward_packed(bench, blam, reg)))
+        equal(res, f"K8 Car (4, 2) T=25 N=4096 reg={reg}", same,
+              same_bits("belief.cu", bel, lambda: cb.cuda_bsp_backward_packed(car, lam_car, reg)))
+    for key, p, lam, reg in belief_problems():
+        equal(res, f"K8 {key}", same,
+              same_bits("belief.cu", bel, lambda: cb.cuda_bsp_backward_packed(p, lam, reg)))
+    res["bits_equal_parent"] = same
+    log(json.dumps(same))
+
+    # chip_smoke.py's checks: the exact cases on both builds, the tolerance checks on this tree's
+    bstate0 = bsolve.init(bmu0s, bsigma0s)
+    from trajopt_torch.core.belief import belief_cost_expansion, belief_dynamics_expansion
+    env_ld = trajopt_torch.make("LightDark-TO-v0")
+    T_b = chip_smoke.T_BSP
+    first_b = cb.pack_belief(
+        belief_cost_expansion(env_ld, bstate0.bref_mu, bstate0.bref_sigma, bstate0.uref),
+        belief_dynamics_expansion(env_ld, bstate0.bref_mu[:, :T_b], bstate0.bref_sigma[:, :T_b],
+                                  bstate0.uref))
+    for lab in ("par", "new"):
+        C.use("gps.cu", f"gps {lab}")
+        C.use("belief.cu", f"belief {lab}")
+        check(res, f"K6 exact case, {lab}", lambda: chip_smoke.check_k6_exact(packed))
+        check(res, f"K7 exact case, {lab}", lambda: chip_smoke.check_k7_exact(packed))
+        check(res, f"K8 exact case, {lab}",
+              lambda: chip_smoke.check_k8_exact(first_b, bstate0.lmbda.contiguous()))
+    check(res, "K6/K7 checks against the plain versions, new", lambda: chip_smoke.check_gps_kernels(dev))
+    check(res, "K8 checks against the plain version, new", lambda: chip_smoke.check_k8(dev))
+
+    # in turns
+    res["turns"] = {}
+    for lab in ("par", "new", "new", "par"):
+        C.use("gps.cu", f"gps {lab}")
+        C.use("belief.cu", f"belief {lab}")
+        path = chip_smoke.replay_ms(kept, originals)
+        bpath = chip_smoke.replay_ms(bkept, boriginals)
+        d = {"K6 GPS path": chip_smoke.spread(path["K6"]),
+             "K7 GPS path": chip_smoke.spread(path["K7"]),
+             "K7 α=1": C.back_to_back(lambda: cg.cuda_gps_forward_kl_packed(packed, *k6_first[:3]), 20),
+             "K7 dual chain": C.back_to_back(lambda: cg.cuda_gps_forward_kl_packed(dual, *k6d[:3]), 5),
+             "K6 dual chain": C.back_to_back(lambda: cg.cuda_gps_backward_packed(dual, dual_alpha), 5),
+             "K8 BSP path": chip_smoke.spread(bpath["K8"]),
+             "K8 bench.py:511": C.back_to_back(lambda: cb.cuda_bsp_backward_packed(bench, blam, 1), 20),
+             "K8 Car (4, 2)": C.back_to_back(lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1), 20),
+             "GPS outer iteration": events_ms(lambda: solve.iteration(state0)),
+             "BSP outer iteration": events_ms(lambda: bsolve.iteration(bstate0))}
+        res["turns"].setdefault(lab, []).append(d)
+        res.setdefault("K7 GPS path, each", {}).setdefault(lab, []).append(path["K7"])
+        res.setdefault("K8 BSP path, each", {}).setdefault(lab, []).append(bpath["K8"])
+        log(lab, json.dumps(d))
+    for lab in ("par", "new"):
+        C.use("gps.cu", f"gps {lab}")
+        res[f"profile GPS outer iteration, {lab}"] = profiled(lambda: solve.iteration(state0),
+                                                              skip=("gps.",))
+        log(json.dumps(res[f"profile GPS outer iteration, {lab}"]))
+
+    # stamps of this tree's K6, K7 and K8
+    res["stamps"] = {}
+    for lib, src, entry, calls in (
+            ("gps stamped", "gps.cu", "gps_stamps",
+             (("K6 path launch 1", WALK_K6_NAMES, lambda: originals["K6"](*kept["K6"][0][0])),
+              ("K7 path launch 1", WALK_K7_NAMES, lambda: originals["K7"](*kept["K7"][0][0])),
+              ("K7 α=1", WALK_K7_NAMES, lambda: cg.cuda_gps_forward_kl_packed(packed, *k6_first[:3])),
+              ("K7 dual chain", WALK_K7_NAMES, lambda: cg.cuda_gps_forward_kl_packed(dual, *k6d[:3])))),
+            ("belief stamped", "belief.cu", "belief_stamps",
+             (("K8 path launch 1", WALK_K8_NAMES, lambda: boriginals["K8"](*bkept["K8"][0][0])),
+              ("K8 bench.py:511", WALK_K8_NAMES, lambda: cb.cuda_bsp_backward_packed(bench, blam, 1)),
+              ("K8 Car (4, 2)", WALK_K8_NAMES, lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1))))):
+        if lib not in C.libs:
+            continue
+        fn = getattr(C.libs[lib], entry)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_ulonglong * 20)()
+        C.use(src, lib)
+        fn(buf, 1)
+        for label, names, call in calls:
+            call()
+            fn(buf, 1)
+            res["stamps"][label] = walk_report(list(buf), names)
+        C.use(src, src.split(".")[0] + " new")
+    log(json.dumps(res["stamps"]))
+
+
 if __name__ == "__main__":
-    C.run({"K2,K3,K11,K12,K14": sweeps, "K6,K7,K13,K14": gps_k13, "K1,K4,K5,K6,K7,K8": pivots})
+    C.run({"K2,K3,K11,K12,K14": sweeps, "K6,K7,K13,K14": gps_k13, "K1,K4,K5,K6,K7,K8": pivots,
+           "K7,K8": kl_belief})

@@ -266,68 +266,10 @@ K13_NO_PREFETCH = {"elqr.cu": [(
     "    load_mat(K, tn, np, n, Kn);\n    load_vec(kff, tn, np, n, kn);\n",
     "    load_mat(K, t, np, n, Kt);\n    load_vec(kff, t, np, n, kt);\n", 1)]}
 
-# Stamps of the staged K6 (this tree's): the consumer's step (slots 0 operand
-# reads from the stage, 1 Q blocks, 2 factor of −Quu and its solves, 3 value
-# update, 4 stores; 7 steps), its waits for a filled stage (8) and its whole
-# walk (9); the first producer thread's chunk: the next chunk's copies issued
-# and this chunk's landed (10), the producers' barrier (11), the
-# augmentation (12), chunks (13).
-NEW_K6_STAMPS = {"gps.cu": [
-    ('#include "bwd_step.cuh"\n', '#include "bwd_step.cuh"\n' + stamp_header("gps_stamps")
-     + "#define PSTAMP(i, a, b) { if (blockIdx.x == 0 && threadIdx.x == 32) g_stamp[i] += (b) - (a); }\n", 1),
-    ("                                               S (&sigc)[DU][DU]) {\n  using L = GpsSlot<DX, DU>;\n",
-     "                                               S (&sigc)[DU][DU]) {\n  STAMP_BEGIN\n  using L = GpsSlot<DX, DU>;\n", 1),
-    ("  const bool bad_o = op[L::BAD * kGpsGroup] != S(0);\n",
-     "  const bool bad_o = op[L::BAD * kGpsGroup] != S(0);\n"
-     "  TOUCH(A, B, c, sigd, agCxx, agCxu, agcx, agCuu, agcu, agc0, nia, na)\n  STAMP(0)\n", 1),
-    ("  const S q0 = nia * (agc0 + v0 + dot(c, Vc) + trace_prod(V, sigd) + dot(v, c));\n",
-     "  const S q0 = nia * (agc0 + v0 + dot(c, Vc) + trace_prod(V, sigd) + dot(v, c));\n"
-     "  TOUCH(q0, Qxx, QuxT, Quu, qu, qx)\n  STAMP(1)\n", 1),
-    ("  {\n    S QuxTK[DX][DX], Vn[DX][DX];\n",
-     "  TOUCH(K, kff, sigc)\n  STAMP(2)\n  {\n    S QuxTK[DX][DX], Vn[DX][DX];\n", 1),
-    ("  v0 = na * (S(0.5) * dot(qu, kff) + q0 + S(0.5) * (S(DU * LOG_2PI) - logdet_m2Quu));\n}\n",
-     "  v0 = na * (S(0.5) * dot(qu, kff) + q0 + S(0.5) * (S(DU * LOG_2PI) - logdet_m2Quu));\n"
-     "  TOUCH(V, v, v0)\n  STAMP(3)\n}\n", 1),
-    ("          gps_chain_step<S, DX, DU>(stage + s * E * G, V, v, v0, bad, Kt, kff, sigc);\n",
-     "          gps_chain_step<S, DX, DU>(stage + s * E * G, V, v, v0, bad, Kt, kff, sigc);\n"
-     "          STAMP_BEGIN\n", 1),
-    ("          store(sigc_out, t, n, np, sigc);\n",
-     "          store(sigc_out, t, n, np, sigc);\n          STAMP(4)\n          STAMP_COUNT(7)\n", 1),
-    ("      ring_acquire<B, NS>(k);\n",
-     "      const long long w0 = clock64();\n      ring_acquire<B, NS>(k);\n"
-     "      if (blockIdx.x == 0 && threadIdx.x == 0) g_stamp[8] += clock64() - w0;\n", 1),
-    ("    S V[DX][DX], v[DX], v0 = S(0);\n    bool bad = false;\n",
-     "    const long long walk0 = clock64();\n    S V[DX][DX], v[DX], v0 = S(0);\n    bool bad = false;\n", 1),
-    ("    if (live) {\n      store(V0_out, 0, n, np, V);\n",
-     "    if (blockIdx.x == 0 && threadIdx.x == 0) g_stamp[9] += clock64() - walk0;\n"
-     "    if (live) {\n      store(V0_out, 0, n, np, V);\n", 1),
-    ("    for (int k = 0; k < chunks; ++k) {\n      if (k + 1 < chunks) {\n",
-     "    for (int k = 0; k < chunks; ++k) {\n      const long long p0 = clock64();\n      if (k + 1 < chunks) {\n", 1),
-    ("      named_sync<P>(kGpsProducerBarrier);   // chunk k's copies have landed\n",
-     "      const long long p1 = clock64();\n      PSTAMP(10, p0, p1)\n"
-     "      named_sync<P>(kGpsProducerBarrier);   // chunk k's copies have landed\n"
-     "      const long long p2 = clock64();\n      PSTAMP(11, p1, p2)\n", 1),
-    ("      ring_publish<B, NS>(k);\n",
-     "      PSTAMP(12, p2, clock64())\n      if (blockIdx.x == 0 && threadIdx.x == 32) g_stamp[13] += 1;\n"
-     "      ring_publish<B, NS>(k);\n", 1),
-]}
-NEW_K6_STEP_NAMES = ("stage_reads", "Q_blocks", "factor_and_solves", "value_update", "stores")
-
-
-def new_k6_report(raw):
-    d = stamps_per_step(raw, NEW_K6_STEP_NAMES, 7)
-    chunks = max(raw[13], 1)
-    d.update({"acquire_wait_per_step": raw[8] / max(raw[7], 1),
-              "walk_per_step": raw[9] / max(raw[7], 1),
-              "producer_chunks": raw[13], "producer_copy_wait_per_chunk": raw[10] / chunks,
-              "producer_barrier_per_chunk": raw[11] / chunks,
-              "producer_augment_per_chunk": raw[12] / chunks})
-    return d
-
-
 def k6_variant(group=32, producers=12, budget_kb=227, max_chunk=16, stages=3):
-    """This tree's gps.cu with K6's instances a block, producer warps (float),
-    shared memory budget a block, largest chunk and ring stages changed."""
+    """This tree's gps.cu with the GPS walk's (K6's and K7's) instances a
+    block, producer warps (float), shared memory budget a block, largest
+    chunk and ring stages changed."""
     subs = []
     if stages != 3:
         subs.append(("constexpr int kGpsStages = 3;", f"constexpr int kGpsStages = {stages};", 1))
@@ -338,5 +280,314 @@ def k6_variant(group=32, producers=12, budget_kb=227, max_chunk=16, stages=3):
     if budget_kb != 227:
         subs.append(("constexpr int kGpsBudget = 227 * 1024;", f"constexpr int kGpsBudget = {budget_kb} * 1024;", 1))
     if max_chunk != 16:
-        subs.append(("gps_bytes<S, DX, DU>(16) <= kGpsBudget  ? 16", "gps_bytes<S, DX, DU>(16) < 0 ? 16", 1))
+        subs.append(("  static constexpr int kChunk = walk_chunk<S, kGpsGroup, kGpsStages, E_, R_>(kGpsBudget);\n",
+                     "  static constexpr int kChunk = walk_chunk<S, kGpsGroup, kGpsStages, E_, R_>(kGpsBudget) > "
+                     f"{max_chunk} ? {max_chunk} : walk_chunk<S, kGpsGroup, kGpsStages, E_, R_>(kGpsBudget);\n", 1))
     return {"gps.cu": subs}
+
+
+def merge(*patches):
+    """One {file: subs} of several, the subs of a file in order."""
+    out = {}
+    for p in patches:
+        for f, subs in p.items():
+            out.setdefault(f, []).extend(subs)
+    return out
+
+
+# Stamps of K7's step (slots 0 loads, 1 the two factors and Λ_old, 2 the KL's
+# carry-free part, 3 its three carry terms and the sum, 4 the propagation;
+# 5 steps) in a gps.cu whose K7 runs one thread an instance (its first design).
+K7_STAMPS = {"gps.cu": [
+    ('#include "bwd_step.cuh"\n', '#include "bwd_step.cuh"\n' + stamp_header("gps_stamps"), 1),
+    ("  for (int t = 0; t < T; ++t) {\n    S A[DX][DX], B[DX][DU], c[DX], sigd[DX][DX];\n",
+     "  for (int t = 0; t < T; ++t) {\n    STAMP_BEGIN\n    S A[DX][DX], B[DX][DU], c[DX], sigd[DX][DX];\n", 1),
+    ("    load(sigo_s, t, n, np, sigo);\n",
+     "    load(sigo_s, t, n, np, sigo);\n    TOUCH(A, B, c, sigd, K, kff, sigc, Ko, ko, sigo)\n    STAMP(0)\n", 1),
+    ("    chol(sc, Lc, inv_dc);\n",
+     "    chol(sc, Lc, inv_dc);\n    TOUCH(Lo, inv_do, lam, Lc, inv_dc)\n    STAMP(1)\n", 1),
+    ("    mv(diff_K, mu, dKmu);\n"
+     "    const S kl_t = S(0.5) * (logdet_from_chol(Lo) - logdet_from_chol(Lc)) +\n"
+     "                   S(0.5) * trace_prod(lam, sigc) - S(0.5 * DU) +\n"
+     "                   S(0.5) * trace_prod(diff_K, Sx) + S(0.5) * dot(mu, dKmu) -\n"
+     "                   dot(mu, diff_crs) + S(0.5) * dot(dk, lam_dk);\n"
+     "    kl = kl + kl_t;\n",
+     "    const S h_ = S(0.5) * (logdet_from_chol(Lo) - logdet_from_chol(Lc)) +\n"
+     "                 S(0.5) * trace_prod(lam, sigc) - S(0.5 * DU);\n"
+     "    const S g_ = S(0.5) * dot(dk, lam_dk);\n"
+     "    TOUCH(h_, g_, diff_K, diff_crs)\n    STAMP(2)\n"
+     "    mv(diff_K, mu, dKmu);\n"
+     "    const S kl_t = h_ + S(0.5) * trace_prod(diff_K, Sx) + S(0.5) * dot(mu, dKmu) -\n"
+     "                   dot(mu, diff_crs) + g_;\n"
+     "    kl = kl + kl_t;\n    TOUCH(kl)\n    STAMP(3)\n", 1),
+    ("    sym(Sn, Sx);\n  }\n  kl_out[n] = kl;\n",
+     "    sym(Sn, Sx);\n    TOUCH(mu, Sx)\n    STAMP(4)\n    STAMP_COUNT(5)\n  }\n  kl_out[n] = kl;\n", 1),
+]}
+K7_STAMP_NAMES = ("loads", "factors", "kl_carry_free", "kl_carry_terms", "propagation")
+
+# Stamps of K8's step (slots 0 loads of the b- and a-sized blocks, 1 the value
+# blocks SF, SG, C, D, Eᵀ, 2 the channels c, d, e (the b²-row blocks read
+# inside their matvecs against τ and vec S), 3 the regularization, the
+# factor of D_reg and its solves, 4 the value update, 5 the stores; 6 steps)
+# in a belief.cu of one thread an instance (its first design).
+K8_STAMPS = {"belief.cu": [
+    ('#include "bwd_step.cuh"\n', '#include "bwd_step.cuh"\n' + stamp_header("belief_stamps"), 1),
+    ("  for (int t = T - 1; t >= 0; --t) {\n    S Q[B][B],",
+     "  for (int t = T - 1; t >= 0; --t) {\n    STAMP_BEGIN\n    S Q[B][B],", 1),
+    ("    load(Gs, t, n, np, G);\n",
+     "    load(Gs, t, n, np, G);\n    TOUCH(Q, q, R, r, P, F, G)\n    STAMP(0)\n", 1),
+    ("        for (int j = 0; j < A; ++j) D[i][j] = R[i][j] + GtSG[i][j];\n    }\n",
+     "        for (int j = 0; j < A; ++j) D[i][j] = R[i][j] + GtSG[i][j];\n    }\n"
+     "    TOUCH(C, D, ET, SF, SG)\n    STAMP(1)\n", 1),
+    ("      for (int i = 0; i < BB; ++i) e[i] = p[i] + Ut[i] + S(0.5) * Yv[i];\n    }\n",
+     "      for (int i = 0; i < BB; ++i) e[i] = p[i] + Ut[i] + S(0.5) * Yv[i];\n    }\n"
+     "    TOUCH(c, d, e)\n    STAMP(2)\n", 1),
+    ("      for (int i = 0; i < A; ++i) kff[i] = -x[i];\n    }\n",
+     "      for (int i = 0; i < A; ++i) kff[i] = -x[i];\n    }\n    TOUCH(K, kff)\n    STAMP(3)\n", 1),
+    ("      sym(Sn, Sv);\n    }\n",
+     "      sym(Sn, Sv);\n    }\n    TOUCH(Sv, sv, tau, ds0, ds1)\n    STAMP(4)\n", 1),
+    ("    store(tau_out, t, n, np, tau);\n  }\n",
+     "    store(tau_out, t, n, np, tau);\n    STAMP(5)\n    STAMP_COUNT(6)\n  }\n", 1),
+]}
+K8_STAMP_NAMES = ("loads", "value_blocks", "channels", "factor_and_solves", "value_update",
+                  "stores")
+
+
+# Stamps of the staged walk (staged_walk.cuh; K6 and K7 in gps.cu, K8 in
+# belief.cu): the consumer's waits for a filled stage (slot 8) and its whole
+# walk (9); the first producer thread's chunk: the next chunk's copies issued
+# and this chunk's landed (10), the producers' barrier (11), the carry-free
+# part (12), chunks (13).  Each kernel's step fills slots 0-6 and counts its
+# steps in 7.
+WALK_STAMPS = [
+    ("    typename W::Carry carry;\n",
+     "    const long long walk0 = clock64();\n    typename W::Carry carry;\n", 1),
+    ("      ring_acquire<B, NS>(k);\n",
+     "      const long long w0 = clock64();\n      ring_acquire<B, NS>(k);\n"
+     "      if (blockIdx.x == 0 && threadIdx.x == 0) g_stamp[8] += clock64() - w0;\n", 1),
+    ("    if (live) w.finish(carry, n);\n",
+     "    if (blockIdx.x == 0 && threadIdx.x == 0) g_stamp[9] += clock64() - walk0;\n"
+     "    if (live) w.finish(carry, n);\n", 1),
+    ("    for (int k = 0; k < chunks; ++k) {\n      if (k + 1 < chunks) {\n",
+     "    for (int k = 0; k < chunks; ++k) {\n      const long long p0 = clock64();\n      if (k + 1 < chunks) {\n", 1),
+    ("      if constexpr (W::kAugments) {\n        named_sync<P>(Sh::kProducerBarrier);   // chunk k's copies have landed\n",
+     "      const long long p1 = clock64();\n      PSTAMP(10, p0, p1)\n      long long p2 = p1;\n"
+     "      if constexpr (W::kAugments) {\n        named_sync<P>(Sh::kProducerBarrier);   // chunk k's copies have landed\n"
+     "        p2 = clock64();\n        PSTAMP(11, p1, p2)\n", 1),
+    ("      ring_publish<B, NS>(k);\n",
+     "      PSTAMP(12, p2, clock64())\n      if (blockIdx.x == 0 && threadIdx.x == 32) g_stamp[13] += 1;\n"
+     "      ring_publish<B, NS>(k);\n", 1),
+]
+PSTAMP = "#define PSTAMP(i, a, b) { if (blockIdx.x == 0 && threadIdx.x == 32) g_stamp[i] += (b) - (a); }\n"
+
+
+def walk_stamps(cu, entry, steps):
+    """{file: subs} stamping the walk and, in ``cu``, the steps ``steps``."""
+    return {cu: [('#include "bwd_step.cuh"\n', '#include "bwd_step.cuh"\n' + stamp_header(entry) + PSTAMP, 1)]
+            + steps, "staged_walk.cuh": WALK_STAMPS}
+
+
+# K6's step on the walk (slots 0 stage reads, 1 Q blocks, 2 factor of −Quu
+# and its solves, 3 value update, 4 stores).
+WALK_K6_STEP = [
+    ("                                               S (&sigc)[DU][DU]) {\n  using L = GpsSlot<DX, DU>;\n",
+     "                                               S (&sigc)[DU][DU]) {\n  STAMP_BEGIN\n  using L = GpsSlot<DX, DU>;\n", 1),
+    ("  const bool bad_o = op[L::BAD * G] != S(0);\n",
+     "  const bool bad_o = op[L::BAD * G] != S(0);\n"
+     "  TOUCH(A, B, c, sigd, agCxx, agCxu, agcx, agCuu, agcu, agc0, nia, na)\n  STAMP(0)\n", 1),
+    ("  const S q0 = nia * (agc0 + v0 + dot(c, Vc) + trace_prod(V, sigd) + dot(v, c));\n",
+     "  const S q0 = nia * (agc0 + v0 + dot(c, Vc) + trace_prod(V, sigd) + dot(v, c));\n"
+     "  TOUCH(q0, Qxx, QuxT, Quu, qu, qx)\n  STAMP(1)\n", 1),
+    ("  {\n    S QuxTK[DX][DX], Vn[DX][DX];\n",
+     "  TOUCH(K, kff, sigc)\n  STAMP(2)\n  {\n    S QuxTK[DX][DX], Vn[DX][DX];\n", 1),
+    ("  v0 = na * (S(0.5) * dot(qu, kff) + q0 + S(0.5) * (S(DU * LOG_2PI) - logdet_m2Quu));\n}\n",
+     "  v0 = na * (S(0.5) * dot(qu, kff) + q0 + S(0.5) * (S(DU * LOG_2PI) - logdet_m2Quu));\n"
+     "  TOUCH(V, v, v0)\n  STAMP(3)\n}\n", 1),
+    ("    gps_chain_step<S, DX, DU>(op, k.V, k.v, k.v0, k.bad, Kt, kff, sigc);\n",
+     "    gps_chain_step<S, DX, DU>(op, k.V, k.v, k.v0, k.bad, Kt, kff, sigc);\n    STAMP_BEGIN\n", 1),
+    ("    store(sigc_out, t, n, np, sigc);\n",
+     "    store(sigc_out, t, n, np, sigc);\n    STAMP(4)\n    STAMP_COUNT(7)\n", 1),
+]
+WALK_K6_NAMES = ("stage_reads", "Q_blocks", "factor_and_solves", "value_update", "stores")
+
+# K7's consumer step (slots 0 stage reads, 1 the three carry terms and the
+# sum, 2 the propagation).
+WALK_K7_STEP = [
+    ("    using L = KlSlot<DX, DU>;\n    constexpr int G = kGpsGroup;\n    S A_[DX][DX]",
+     "    STAMP_BEGIN\n    using L = KlSlot<DX, DU>;\n    constexpr int G = kGpsGroup;\n    S A_[DX][DX]", 1),
+    ("    const S h = op[L::H * G], tail = op[L::TAIL * G];\n",
+     "    const S h = op[L::H * G], tail = op[L::TAIL * G];\n"
+     "    TOUCH(A_, B_, c_, sigd_, Kt, kt, sc, diff_K, diff_crs, h, tail)\n    STAMP(0)\n", 1),
+    ("    k.kl = k.kl + kl_t;\n", "    k.kl = k.kl + kl_t;\n    TOUCH(k.kl)\n    STAMP(1)\n", 1),
+    ("    sym(Sn, Sx);\n  }\n",
+     "    sym(Sn, Sx);\n    TOUCH(k.mu, k.Sx)\n    STAMP(2)\n    STAMP_COUNT(7)\n  }\n", 1),
+]
+WALK_K7_NAMES = ("stage_reads", "kl_carry_terms", "propagation")
+
+# K8's consumer step (slots 0 stage reads of the b- and a-sized blocks, 1 the
+# value blocks, 2 the channels with their b²-row reads, 3 regularization,
+# factor and solves, 4 value update, 5 stores).
+WALK_K8_STEP = [
+    ("    const S lam = k.lam;\n", "    const S lam = k.lam;\n    STAMP_BEGIN\n", 1),
+    ("    slot_get<Gr>(op, L::G, G);\n",
+     "    slot_get<Gr>(op, L::G, G);\n    TOUCH(Q, q, R_, r, P, F, G)\n    STAMP(0)\n", 1),
+    ("        for (int j = 0; j < A; ++j) D[i][j] = R_[i][j] + GtSG[i][j];\n    }\n",
+     "        for (int j = 0; j < A; ++j) D[i][j] = R_[i][j] + GtSG[i][j];\n    }\n"
+     "    TOUCH(C, D, ET, SF, SG)\n    STAMP(1)\n", 1),
+    ("      for (int i = 0; i < BB; ++i) e[i] = p[i] + Ut[i] + S(0.5) * Yv[i];\n    }\n",
+     "      for (int i = 0; i < BB; ++i) e[i] = p[i] + Ut[i] + S(0.5) * Yv[i];\n    }\n"
+     "    TOUCH(c, d, e)\n    STAMP(2)\n", 1),
+    ("      for (int i = 0; i < A; ++i) kff[i] = -x[i];\n    }\n",
+     "      for (int i = 0; i < A; ++i) kff[i] = -x[i];\n    }\n    TOUCH(K, kff)\n    STAMP(3)\n", 1),
+    ("      sym(Sn, Sv);\n    }\n",
+     "      sym(Sn, Sv);\n    }\n    TOUCH(Sv, sv, tau, k.ds0, k.ds1)\n    STAMP(4)\n", 1),
+    ("    store(tau_out, t, n, np, tau);\n  }\n",
+     "    store(tau_out, t, n, np, tau);\n    STAMP(5)\n    STAMP_COUNT(7)\n  }\n", 1),
+]
+WALK_K8_NAMES = ("stage_reads", "value_blocks", "channels", "factor_and_solves", "value_update",
+                 "stores")
+GPS_WALK_STAMPS = walk_stamps("gps.cu", "gps_stamps", WALK_K6_STEP + WALK_K7_STEP)
+BELIEF_WALK_STAMPS = walk_stamps("belief.cu", "belief_stamps", WALK_K8_STEP)
+
+
+def walk_report(raw, names):
+    """Cycles a consumer step by phase, its waits and its walk, and the first
+    producer thread's cycles a chunk, from the raw counters of WALK_STAMPS."""
+    d = stamps_per_step(raw, names, 7)
+    chunks = max(raw[13], 1)
+    d.update({"acquire_wait_per_step": raw[8] / max(raw[7], 1),
+              "walk_per_step": raw[9] / max(raw[7], 1),
+              "producer_chunks": raw[13], "producer_copy_wait_per_chunk": raw[10] / chunks,
+              "producer_barrier_per_chunk": raw[11] / chunks,
+              "producer_augment_per_chunk": raw[12] / chunks})
+    return d
+
+
+# K6's step and walk stamps on this tree (variants.py, final_ab.py).
+NEW_K6_STAMPS = walk_stamps("gps.cu", "gps_stamps", WALK_K6_STEP)
+
+
+def new_k6_report(raw):
+    return walk_report(raw, WALK_K6_NAMES)
+
+
+# K7's measured alternative: the consumer hands (μ_t, Σ_t) back into its
+# stage slot (over c and A, which it has read) and producer warp 0 takes the
+# three carry terms and sums the KL in t order once the consumer has
+# released the chunk (before the chunk's stage is refilled; the last
+# kStages chunks after the consumer's walk, behind one more barrier).
+KL_ON_PRODUCERS = {
+    "staged_walk.cuh": [
+        ("        const S* stage = ring + (k % NS) * Sh::STAGE + g;\n",
+         "        S* stage = ring + (k % NS) * Sh::STAGE + g;\n", 1),
+        ("    if (live) w.finish(carry, n);\n",
+         "    if constexpr (W::kTail) named_arrive<64>(Sh::kProducerBarrier + 1);\n"
+         "    if (live) w.finish(carry, n);\n", 1),
+        ("    int t0, steps;\n    walk_span<W>(0, T, t0, steps);\n    ring_reserve<B, NS>(0);\n",
+         "    int t0, steps;\n    typename W::Tail acc{};\n"
+         "    const bool tail_lane = W::kTail && tid < G && n0 + tid < N;\n"
+         "    auto tail_of = [&](int c) {\n"
+         "      int c0, cs;\n      walk_span<W>(c, T, c0, cs);\n"
+         "      const S* st = ring + (c % NS) * Sh::STAGE + tid;\n"
+         "      if constexpr (W::kTail)\n        for (int s = 0; s < cs; ++s) w.tail(st + s * E * G, acc);\n    };\n"
+         "    walk_span<W>(0, T, t0, steps);\n    ring_reserve<B, NS>(0);\n", 1),
+        ("        ring_reserve<B, NS>(k + 1);\n        walk_copy(",
+         "        ring_reserve<B, NS>(k + 1);\n"
+         "        if (W::kTail && k + 1 >= NS) {\n          if (tail_lane) tail_of(k + 1 - NS);\n"
+         "          named_sync<P>(Sh::kProducerBarrier);   // read before it is refilled\n        }\n"
+         "        walk_copy(", 1),
+        ("      ring_publish<B, NS>(k);\n    }\n  }\n}\n",
+         "      ring_publish<B, NS>(k);\n    }\n"
+         "    if constexpr (W::kTail) {\n      if (tid < 32) {\n"
+         "        named_sync<64>(Sh::kProducerBarrier + 1);\n"
+         "        if (tail_lane) {\n"
+         "          for (int c = chunks > NS ? chunks - NS : 0; c < chunks; ++c) tail_of(c);\n"
+         "          w.finish_tail(acc, n0 + tid);\n        }\n      }\n    }\n  }\n}\n", 1),
+    ],
+    "gps.cu": [
+        ("  static constexpr bool kAugments = true;\n};\n",
+         "  static constexpr bool kAugments = true;\n  static constexpr bool kTail = false;\n  struct Tail {};\n};\n", 1),
+        ("  static constexpr bool kForward = true;\n  static constexpr int COPIED = KlSlot<DX, DU>::COPIED;\n",
+         "  static constexpr bool kForward = true;\n  static constexpr int COPIED = KlSlot<DX, DU>::COPIED;\n"
+         "  static constexpr bool kTail = true;\n  struct Tail { S kl; };\n"
+         "  __device__ __forceinline__ void tail(const S* op, Tail& acc) const {\n"
+         "    using L = KlSlot<DX, DU>;\n    constexpr int G = kGpsGroup;\n"
+         "    S mu[DX], Sx[DX][DX], diff_K[DX][DX], diff_crs[DX];\n"
+         "    slot_get<G>(op, L::C, mu);\n    slot_get<G>(op, L::A, Sx);\n"
+         "    slot_get<G>(op, L::DIFFK, diff_K);\n    slot_get<G>(op, L::DIFFCRS, diff_crs);\n"
+         "    const S h = op[L::H * G], tail = op[L::TAIL * G];\n"
+         "    S dKmu[DX];\n    mv(diff_K, mu, dKmu);\n"
+         "    const S kl_t = h + S(0.5) * trace_prod(diff_K, Sx) + S(0.5) * dot(mu, dKmu) -\n"
+         "                   dot(mu, diff_crs) + tail;\n    acc.kl = acc.kl + kl_t;\n  }\n"
+         "  __device__ __forceinline__ void finish_tail(const Tail& acc, int n) const { kl_out[n] = acc.kl; }\n", 1),
+        ("  __device__ __forceinline__ void step(const S* op, Carry& k, int, int) const {\n",
+         "  __device__ __forceinline__ void step(S* op, Carry& k, int, int) const {\n", 1),
+        ("    // ---- the KL terms that read (μ_t, Σ_t) ----------------------------------------\n"
+         "    S dKmu[DX];\n    mv(diff_K, mu, dKmu);\n"
+         "    const S kl_t = h + S(0.5) * trace_prod(diff_K, Sx) + S(0.5) * dot(mu, dKmu) -\n"
+         "                   dot(mu, diff_crs) + tail;\n    k.kl = k.kl + kl_t;\n",
+         "    (void)h; (void)tail;\n    slot_put<G>(op, L::C, mu);\n    slot_put<G>(op, L::A, Sx);\n", 1),
+        ("  __device__ __forceinline__ void finish(const Carry& k, int n) const {\n    kl_out[n] = k.kl;\n",
+         "  __device__ __forceinline__ void finish(const Carry& k, int n) const {\n", 1),
+    ],
+}
+
+
+BSP_SHAPE = ("  static constexpr int kGroup = kWide ? 16 : 32;\n"
+             "  static constexpr int kStages = kWide ? 2 : 4;\n"
+             "  static constexpr int kProducers = kWide ? 4 : sizeof(S) == 4 ? 12 : 6;\n"
+             "  // float (4, 2): two blocks an SM (99.6 KB each)\n"
+             "  static constexpr int kBudget = (kWide && sizeof(S) == 4 ? 113 : 227) * 1024;\n"
+             "  static constexpr int kChunk = walk_chunk<S, kGroup, kStages, E, 0>(kBudget);\n")
+
+
+def k8_variant(group=(32, 32, 16, 16), stages=(4, 2), producers=(12, 6, 4, 4),
+               budget_kb=(227, 227, 113, 227)):
+    """This tree's belief.cu with K8's walk shape changed: instances a block,
+    producer warps and the shared memory budget a block for (b = 2 float,
+    b = 2 double, b = 4 float, b = 4 double) and stages for (b = 2, b = 4)
+    (the defaults are this tree's)."""
+    def pick(v):
+        return (f"(kWide ? (sizeof(S) == 4 ? {v[2]} : {v[3]}) : (sizeof(S) == 4 ? {v[0]} : {v[1]}))")
+    return {"belief.cu": [(BSP_SHAPE,
+        f"  static constexpr int kGroup = {pick(group)};\n"
+        f"  static constexpr int kStages = kWide ? {stages[1]} : {stages[0]};\n"
+        f"  static constexpr int kProducers = {pick(producers)};\n"
+        f"  static constexpr int kBudget = {pick(budget_kb)} * 1024;\n"
+        f"  static constexpr int kChunk = walk_chunk<S, kGroup, kStages, E, 0>(kBudget);\n", 1)]}
+
+
+def walk_first(first):
+    """This tree's staged_walk.cuh with every walk's first chunk at most
+    ``first`` steps, the others kChunk."""
+    f = f"(W::kChunk < {first} ? W::kChunk : {first})"
+    return {"staged_walk.cuh": [
+        ("  const int done = k * W::kChunk;   // steps before chunk k\n"
+         "  steps = T - done < W::kChunk ? T - done : W::kChunk;\n",
+         f"  const int done = k == 0 ? 0 : {f} + (k - 1) * W::kChunk;\n"
+         f"  const int len = k == 0 ? {f} : W::kChunk;\n"
+         "  steps = T - done < len ? T - done : len;\n", 1),
+        ("__device__ __forceinline__ int walk_chunks(int T) { return (T + W::kChunk - 1) / W::kChunk; }",
+         f"__device__ __forceinline__ int walk_chunks(int T) {{\n"
+         f"  return T <= 0 ? 0 : T <= {f} ? 1 : 1 + (T - {f} + W::kChunk - 1) / W::kChunk;\n}}", 1)]}
+
+
+# K7's producers factor Σ_old and Σ_ctl with the library's root and
+# reciprocal (this tree's take PivotOps').
+K7_LIBRARY_FACTORS = {"gps.cu": [
+    ("    chol<S, DU, true>(so, Lo, inv_do);\n", "    chol(so, Lo, inv_do);\n", 1),
+    ("    chol<S, DU, true>(sc, Lc, inv_dc);\n", "    chol(sc, Lc, inv_dc);\n", 1)]}
+# K7 at 2/1 in float with the other builds' producer warps (this tree's: 16).
+K7_21_P12 = {"gps.cu": [("sizeof(S) == 4 ? (DX == 2 ? 16 : kGpsProducersFloat)",
+                         "sizeof(S) == 4 ? (DX == 2 ? kGpsProducersFloat : kGpsProducersFloat)", 1)]}
+
+
+# bwd_step.cuh's chol with PivotOps' root and reciprocal for every caller
+# (K1, K4, K5, K8 and K7's producers as well as K6).
+ALWAYS_PIVOT = {"bwd_step.cuh": [("template <typename S, int N, bool Pivot = false>",
+                                  "template <typename S, int N, bool Pivot = true>", 1)]}
+
+# K8 factoring D_reg with the library's root and reciprocal (this tree's
+# takes PivotOps').
+K8_LIBRARY_FACTOR = {"belief.cu": [("    k.bad = chol<S, A, true>(Ds, Lf, inv_d) || k.bad;\n",
+                                    "    k.bad = chol(Ds, Lf, inv_d) || k.bad;\n", 1)]}

@@ -20,6 +20,16 @@ the solve's ms; clock64 stamps of K6's step at dims 2/1 (the path's first
 and last launch) and of K13's step (a solve's first and last launches); the
 registers and spills of every K6, K7 and K13 build.
 
+``--kernels K7,K8`` (the GPS forward KL and the belief-value backward): K7's
+device ms on each of the 64 launches of one GPS outer iteration (kept and
+replayed), at the solver path's first dual with α = 1 and at the dual
+chain's shape; K8's on every launch of one batched BSP solve
+(LightDark-TO-v0, T=25, N=4096, 10 iterations), at bench.py:511's seeded
+operands and at Car's dims (4, 2); the GPS and BSP outer iterations' ms;
+clock64 stamps of K7's step at the fastest and the slowest path launch, at
+α = 1 and at the dual chain, and of K8's step; the registers and spills of
+every K7 and K8 build.
+
 See common.py for how to run it."""
 import ctypes
 import json
@@ -29,14 +39,16 @@ import numpy as np
 
 import common as C
 from common import log, torch
-from patches import DIV_COUNT, K6_STAMPS, K6_STAMP_NAMES, K13_STAMPS, K13_STAMP_NAMES, \
-    stamp_report, stamps_per_step, sweep_stamps
+from patches import DIV_COUNT, K6_STAMPS, K6_STAMP_NAMES, K7_STAMPS, K7_STAMP_NAMES, K8_STAMPS, \
+    K8_STAMP_NAMES, K13_STAMPS, K13_STAMP_NAMES, stamp_report, stamps_per_step, sweep_stamps
 
 import chip_smoke
 import trajopt_torch
+import trajopt_torch.parallel.bsp as bsp_module
 import trajopt_torch.parallel.gps as gps_module
 import trajopt_torch.parallel.mpc as mpcmod
-from trajopt_torch.core import cuda_elqr as ce, cuda_gps as cg, cuda_rollout as cr
+from trajopt_torch.core import cuda_belief as cb, cuda_elqr as ce, cuda_gps as cg, \
+    cuda_rollout as cr
 from trajopt_torch.core.cuda_lqr import to_soa
 from trajopt_torch.parallel.elqr import make_elqr_solver_batched
 from trajopt_torch.parallel.mpc import make_ilqr_solver_batched
@@ -270,5 +282,110 @@ def gps_k13(opts, res):
     log(json.dumps(res["k13_stamps"]))
 
 
+def ms_each(kept, originals, key):
+    """Each kept launch of ``key`` replayed back to back: its ms, and the
+    spread."""
+    ms = chip_smoke.replay_ms({key: kept[key]}, originals)[key]
+    return ms, chip_smoke.spread(ms)
+
+
+def kl_belief(opts, res):
+    par = opts.parent
+    C.build_variants({
+        "gps": par / "gps.cu", "gps stamped": C.patched_copy(par, K7_STAMPS, "s0_k7") / "gps.cu",
+        "belief": par / "belief.cu",
+        "belief stamped": C.patched_copy(par, K8_STAMPS, "s0_k8") / "belief.cu"})
+    res["ptxas"] = {k: {n: v for n, v in r.items() if "forward_kl" in n or "bsp_backward" in n}
+                    for k, r in C.reports.items()}
+    log(json.dumps(res["ptxas"]))
+    C.use("gps.cu", "gps")
+    C.use("belief.cu", "belief")
+
+    # K7: the GPS solver path's 64 launches, α = 1, the dual chain's shape
+    solver, mu0s, sigma0s, kff0 = chip_smoke.gps_path(dev)
+    solve = solver("cuda", 1)
+    state0 = solve.init(mu0s, sigma0s, kff_init=kff0)
+    solve.iteration(state0)
+    kept, originals = chip_smoke.kept_launches(
+        {"K7": (gps_module, "cuda_gps_forward_kl_packed")}, lambda: solve.iteration(state0))
+    k7_ms, res["K7 GPS path"] = ms_each(kept, originals, "K7")
+    res["K7 GPS path, each"] = k7_ms
+    log(json.dumps(res["K7 GPS path"]))
+    res["gps_outer_iteration_ms"] = [chip_smoke.time_cuda(lambda: solve.iteration(state0), 1)
+                                     for _ in range(3)]
+    packed = cg.pack_gps(state0.cost, state0.dyn, state0.ctl, mu0s, sigma0s)
+    alpha1 = cg.pack_gps_alpha(torch.ones(chip_smoke.N_GPS, chip_smoke.T_GPS, **f32))
+    k6 = cg.cuda_gps_backward_packed(packed, alpha1)
+    cost, dyn, old, alpha, mu0, sig0 = chip_smoke.gps_dual_operands(
+        chip_smoke.T_DUAL, 4, 2, chip_smoke.N_DUAL, dev)
+    dual, dual_alpha = cg.pack_gps(cost, dyn, old, mu0, sig0), cg.pack_gps_alpha(alpha)
+    k6d = cg.cuda_gps_backward_packed(dual, dual_alpha)
+    res["K7 seeded"] = {
+        "solver path, α = 1": [
+            C.back_to_back(lambda: cg.cuda_gps_forward_kl_packed(packed, *k6[:3]), 20)
+            for _ in range(3)],
+        "dual chain T=1000 4/2": [
+            C.back_to_back(lambda: cg.cuda_gps_forward_kl_packed(dual, *k6d[:3]), 5)
+            for _ in range(3)]}
+    log(json.dumps(res["K7 seeded"]))
+
+    # K7's stamps at the fastest and the slowest path launch, α = 1, the dual chain
+    stamp, buf = stamp_buffer("gps stamped", "gps_stamps")
+    C.use("gps.cu", "gps stamped")
+    order = sorted(range(len(k7_ms)), key=k7_ms.__getitem__)
+    res["K7 stamps"] = {}
+    for label, call in ((f"fastest path launch ({order[0] + 1})",
+                         lambda: originals["K7"](*kept["K7"][order[0]][0], **kept["K7"][order[0]][1])),
+                        (f"slowest path launch ({order[-1] + 1})",
+                         lambda: originals["K7"](*kept["K7"][order[-1]][0], **kept["K7"][order[-1]][1])),
+                        ("α = 1", lambda: cg.cuda_gps_forward_kl_packed(packed, *k6[:3])),
+                        ("dual chain", lambda: cg.cuda_gps_forward_kl_packed(dual, *k6d[:3]))):
+        call()
+        stamp(buf, 1)
+        res["K7 stamps"][label] = stamps_per_step(list(buf), K7_STAMP_NAMES, 5)
+    C.use("gps.cu", "gps")
+    log(json.dumps(res["K7 stamps"]))
+    del kept, originals, dual, k6d
+
+    # K8: every launch of the batched BSP solver (LightDark, T=25, N=4096,
+    # 10 iterations), bench.py:511's seeded operands, Car's (4, 2)
+    _, bsolver, bmu0s, bsigma0s = chip_smoke.bsp_path(dev)
+    bsolve = bsolver("cuda")
+    bsolve(bmu0s, bsigma0s)
+    trials0 = bsolve.trials
+    kept, originals = chip_smoke.kept_launches({"K8": (bsp_module, "cuda_bsp_backward_packed")},
+                                               lambda: bsolve(bmu0s, bsigma0s))
+    k8_ms, res["K8 BSP path"] = ms_each(kept, originals, "K8")
+    res["K8 BSP path, each"] = k8_ms
+    res["K8 BSP path, trials"] = bsolve.trials - trials0
+    log(json.dumps(res["K8 BSP path"]))
+    state0 = bsolve.init(bmu0s, bsigma0s)
+    res["bsp_outer_iteration_ms"] = [chip_smoke.time_cuda(lambda: bsolve.iteration(state0), 1)
+                                     for _ in range(3)]
+    bcost, bdyn, blam = chip_smoke.bench_belief_problem(chip_smoke.T_BSP, chip_smoke.N_BSP, dev)
+    bench = cb.pack_belief(bcost, bdyn)
+    car = cb.pack_belief(*chip_smoke.belief_problem(chip_smoke.N_BSP, chip_smoke.T_BSP, 4, 2, 3,
+                                                    torch.float32, dev))
+    lam_car = torch.full((chip_smoke.N_BSP,), 0.1, **f32)
+    res["K8 seeded"] = {
+        "bench.py:511 (2, 2)": [C.back_to_back(lambda: cb.cuda_bsp_backward_packed(bench, blam, 1), 20)
+                                for _ in range(3)],
+        "Car (4, 2) T=25 N=4096": [
+            C.back_to_back(lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1), 20)
+            for _ in range(3)]}
+    log(json.dumps(res["K8 seeded"]))
+    stamp, buf = stamp_buffer("belief stamped", "belief_stamps")
+    C.use("belief.cu", "belief stamped")
+    res["K8 stamps"] = {}
+    for label, call in (("path launch 1", lambda: originals["K8"](*kept["K8"][0][0], **kept["K8"][0][1])),
+                        ("bench.py:511", lambda: cb.cuda_bsp_backward_packed(bench, blam, 1)),
+                        ("Car (4, 2)", lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1))):
+        call()
+        stamp(buf, 1)
+        res["K8 stamps"][label] = stamps_per_step(list(buf), K8_STAMP_NAMES, 6)
+    C.use("belief.cu", "belief")
+    log(json.dumps(res["K8 stamps"]))
+
+
 if __name__ == "__main__":
-    C.run({"K11,K12,K2,K3": sweeps, "K6,K7,K13": gps_k13})
+    C.run({"K11,K12,K2,K3": sweeps, "K6,K7,K13": gps_k13, "K7,K8": kl_belief})

@@ -21,6 +21,16 @@ the GPS path's 64 launches and at the dual chain's shape, and timed there in
 turns (the parent and the builds in order, then in reverse); clock64 stamps
 of the kept shape.
 
+``--kernels K7,K8``: the GPS walk's shape (producer warps, stages, largest
+and first chunk; K6 and K7 share it), K7's producers factoring with
+PivotOps, K7's three carry terms taken on the producers
+(``KL_ON_PRODUCERS``), and K8's shape (instances a block, producer warps,
+stages, first chunk; ``K8_VARIANTS``), each build held to the kept one bit
+for bit (K6/K7 on every eighth GPS path launch and at the dual chain's
+shape, K8 on every BSP path launch and at Car's (4, 2) for reg 1 and 2) and
+timed there in turns (the builds in order, then in reverse); clock64 stamps
+of the kept K8.
+
 See common.py for how to run it."""
 import ctypes
 import json
@@ -28,14 +38,18 @@ import time
 
 import common as C
 from common import log, torch
-from patches import EXACT_ON_CHAIN, NEW_K6_STAMPS, WIDE_BIT_ON_PARENT, WIDE_OR_ON_KEPT, \
-    k6_variant, new_k6_report, threads, vote
+from patches import BELIEF_WALK_STAMPS, EXACT_ON_CHAIN, K7_21_P12, K7_LIBRARY_FACTORS, \
+    K8_LIBRARY_FACTOR, KL_ON_PRODUCERS, NEW_K6_STAMPS, \
+    WALK_K8_NAMES, WIDE_BIT_ON_PARENT, WIDE_OR_ON_KEPT, k6_variant, k8_variant, merge, walk_first, \
+    new_k6_report, threads, vote, walk_report
 
 import chip_smoke
 import trajopt_torch
+import trajopt_torch.parallel.bsp as bsp_module
 import trajopt_torch.parallel.gps as gps_module
 import trajopt_torch.parallel.mpc as mpcmod
-from trajopt_torch.core import cuda_elqr as ce, cuda_gps as cg, cuda_rollout as cr
+from trajopt_torch.core import cuda_belief as cb, cuda_elqr as ce, cuda_gps as cg, \
+    cuda_rollout as cr
 from trajopt_torch.core.cuda_lqr import to_soa
 from trajopt_torch.parallel.elqr import make_elqr_solver_batched
 from trajopt_torch.parallel.mpc import make_ilqr_solver_batched
@@ -157,8 +171,7 @@ def k6_shape(opts, res):
         specs[k] = C.patched_copy(C.NEW, k6_variant(**v), f"v6_{i}") / "gps.cu"
     for i, k in enumerate(STAMPED):
         specs[k + " stamped"] = C.patched_copy(
-            C.NEW, {"gps.cu": k6_variant(**VARIANTS[k])["gps.cu"] + NEW_K6_STAMPS["gps.cu"]},
-            f"v6s_{i}") / "gps.cu"
+            C.NEW, merge(k6_variant(**VARIANTS[k]), NEW_K6_STAMPS), f"v6s_{i}") / "gps.cu"
     C.build_variants(specs)
     res["ptxas"] = {k: {n[:40]: x for n, x in r.items() if "backward" in n}
                     for k, r in C.reports.items()}
@@ -209,5 +222,122 @@ def k6_shape(opts, res):
     log(json.dumps(res["stamps"]))
 
 
+# The GPS walk's (K6's and K7's) shapes and K7's alternatives, each a patch
+# of this tree's gps.cu; the first is the kept one ("P8", "P16" set K6's
+# and K7's float producer warps at every dims but K7's 2/1, which "K7 2/1
+# P12" sets).
+K7_VARIANTS = {
+    "kept": {},
+    "K7 2x1 P12": K7_21_P12, "K7 library factors": K7_LIBRARY_FACTORS,
+    "K7 2x1 P12, library factors": merge(K7_21_P12, K7_LIBRARY_FACTORS),
+    "P8": k6_variant(producers=8), "P16": k6_variant(producers=16),
+    "S2": k6_variant(stages=2), "S4": k6_variant(stages=4),
+    "chunk<=8": k6_variant(max_chunk=8),
+    "first 4": walk_first(4), "first 2": walk_first(2),
+    "K7 KL terms on the producers": KL_ON_PRODUCERS}
+# K8's shapes (k8_variant: instances, producer warps and budget for b = 2
+# float, b = 2 double, b = 4 float, b = 4 double; stages for b = 2, 4; the
+# first chunk); the first is the kept one, "S3 P4, wide G32" the first build
+# (with the library's factor, as "library factor"; the others take
+# PivotOps').
+_S3 = dict(group=(32, 32, 32, 16), stages=(3, 2), budget_kb=(227, 227, 227, 227))
+K8_VARIANTS = {
+    "kept": {}, "library factor": K8_LIBRARY_FACTOR,
+    "S3 P4, wide G32": merge(k8_variant(producers=(4, 4, 4, 4), **_S3), K8_LIBRARY_FACTOR),
+    "S3 P8, wide G32 P8": k8_variant(producers=(8, 6, 8, 4), **_S3),
+    "S3 P12, wide G32 P8": k8_variant(producers=(12, 6, 8, 4), **_S3),
+    "S3 P16, wide G32 P8": k8_variant(producers=(16, 6, 8, 4), **_S3),
+    "S3 P4, wide G32 P2": k8_variant(producers=(4, 4, 2, 2), **_S3),
+    "S3 P12 first 1": merge(k8_variant(producers=(12, 6, 8, 4), **_S3), walk_first(1)),
+    "S3 P12 first 2": merge(k8_variant(producers=(12, 6, 8, 4), **_S3), walk_first(2)),
+    "S2 P12": k8_variant(stages=(2, 2)),
+    "G16 P6 113KB, wide G16 P4": k8_variant(group=(16, 16, 16, 8), producers=(6, 4, 4, 4),
+                                             stages=(3, 2), budget_kb=(113, 113, 113, 113)),
+    "S3 P4, wide G16 S3": k8_variant(group=(32, 32, 16, 8), stages=(3, 3),
+                                     producers=(4, 4, 4, 4), budget_kb=(227, 227, 227, 227))}
+
+
+def k7_k8_shapes(opts, res):
+    specs = {}
+    for i, (k, v) in enumerate(K7_VARIANTS.items()):
+        specs[f"gps {k}"] = C.patched_copy(C.NEW, v, f"v7_{i}") / "gps.cu"
+    for i, (k, v) in enumerate(K8_VARIANTS.items()):
+        specs[f"belief {k}"] = C.patched_copy(C.NEW, v, f"v8_{i}") / "belief.cu"
+    specs["belief kept stamped"] = C.patched_copy(C.NEW, BELIEF_WALK_STAMPS, "v8s") / "belief.cu"
+    C.build_variants(specs)
+    res["ptxas"] = {k: {n[4:40]: x for n, x in r.items() if "forward_kl" in n or "bsp" in n}
+                    for k, r in C.reports.items()}
+    res["failures"] = []
+
+    solver, mu0s, sigma0s, kff0 = chip_smoke.gps_path(dev)
+    solve = solver("cuda", 1)
+    C.use("gps.cu", "gps kept")
+    state0 = solve.init(mu0s, sigma0s, kff_init=kff0)
+    kept, originals = chip_smoke.kept_launches(
+        {"K6": (gps_module, "cuda_gps_backward_packed"),
+         "K7": (gps_module, "cuda_gps_forward_kl_packed")}, lambda: solve.iteration(state0))
+    cost, dyn, old, alpha, mu0, sig0 = chip_smoke.gps_dual_operands(1000, 4, 2, 4096, dev)
+    dual, dual_alpha = cg.pack_gps(cost, dyn, old, mu0, sig0), cg.pack_gps_alpha(alpha)
+    k6d = cg.cuda_gps_backward_packed(dual, dual_alpha)
+    _, bsolver, bmu0s, bsigma0s = chip_smoke.bsp_path(dev)
+    bsolve = bsolver("cuda")
+    C.use("belief.cu", "belief kept")
+    bkept, boriginals = chip_smoke.kept_launches({"K8": (bsp_module, "cuda_bsp_backward_packed")},
+                                                 lambda: bsolve(bmu0s, bsigma0s))
+    car = cb.pack_belief(*chip_smoke.belief_problem(4096, 25, 4, 2, 3, torch.float32, dev))
+    lam_car = torch.full((4096,), 0.1, **f32)
+
+    def gps_digests():
+        return ([C.digest(originals[k](*a, **kw)) for k in ("K6", "K7") for a, kw in kept[k][::8]]
+                + [C.digest(cg.cuda_gps_backward_packed(dual, dual_alpha)),
+                   C.digest(cg.cuda_gps_forward_kl_packed(dual, *k6d[:3]))])
+
+    def bsp_digests():
+        return ([C.digest(boriginals["K8"](*a, **kw)) for a, kw in bkept["K8"]]
+                + [C.digest(cb.cuda_bsp_backward_packed(car, lam_car, r)) for r in (1, 2)])
+
+    res["bits_equal_kept"] = {}
+    for src, variants, digests in (("gps", K7_VARIANTS, gps_digests), ("belief", K8_VARIANTS, bsp_digests)):
+        ref = None
+        for lab in variants:
+            C.use(f"{src}.cu", f"{src} {lab}")
+            d = digests()
+            ref = ref or d
+            res["bits_equal_kept"][f"{src} {lab}"] = d == ref
+            if d != ref:
+                res["failures"].append(f"{src} {lab}: outputs differ from the kept build's")
+    log(json.dumps(res["bits_equal_kept"]))
+    res["ms"] = {}
+    for turn in range(2):
+        for src, variants in (("gps", K7_VARIANTS), ("belief", K8_VARIANTS)):
+            for lab in (list(variants) if turn == 0 else list(variants)[::-1]):
+                C.use(f"{src}.cu", f"{src} {lab}")
+                if src == "gps":
+                    path = chip_smoke.replay_ms(kept, originals)
+                    d = {"K7 path": chip_smoke.spread(path["K7"]), "K6 path": chip_smoke.spread(path["K6"]),
+                         "K7 dual chain": C.back_to_back(
+                             lambda: cg.cuda_gps_forward_kl_packed(dual, *k6d[:3]), 5),
+                         "K6 dual chain": C.back_to_back(
+                             lambda: cg.cuda_gps_backward_packed(dual, dual_alpha), 5)}
+                else:
+                    d = {"K8 path": chip_smoke.spread(chip_smoke.replay_ms(bkept, boriginals)["K8"]),
+                         "K8 Car (4, 2)": C.back_to_back(
+                             lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1), 20)}
+                res["ms"].setdefault(f"{src} {lab}", []).append(d)
+                log(src, lab, json.dumps(d))
+    fn = C.libs["belief kept stamped"].belief_stamps
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    buf = (ctypes.c_ulonglong * 20)()
+    C.use("belief.cu", "belief kept stamped")
+    fn(buf, 1)
+    res["stamps"] = {}
+    for name, call in (("kept, path launch 1", lambda: boriginals["K8"](*bkept["K8"][0][0])),
+                       ("kept, Car (4, 2)", lambda: cb.cuda_bsp_backward_packed(car, lam_car, 1))):
+        call()
+        fn(buf, 1)
+        res["stamps"][name] = walk_report(list(buf), WALK_K8_NAMES)
+    log(json.dumps(res["stamps"]))
+
+
 if __name__ == "__main__":
-    C.run({"K2,K3,K11,K12": rollout_vote_and_blocks, "K6": k6_shape})
+    C.run({"K2,K3,K11,K12": rollout_vote_and_blocks, "K6": k6_shape, "K7,K8": k7_k8_shapes})

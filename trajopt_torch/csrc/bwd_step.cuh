@@ -102,9 +102,10 @@ __device__ __forceinline__ void sym(const S (&A)[N][N], S (&B)[N][N]) {
 // or non-finite flags the instance, which continues with a unit pivot so the
 // arithmetic after it stays finite (pallas_lqr.py:99-120).  Pivot: the
 // square root and reciprocal of PivotOps (pivot.cuh), the library's bits for
-// every pivot without its slow-path branches, for K6's factors.  The other
-// callers keep the library's: with PivotOps K7 and K8 read 12–47 % slower
-// and K1 no faster on its main path's launches (PERF.md).
+// every pivot without its slow-path branches, for K6's and K8's factors and
+// K7's producers'.  K1, K4 (through bwd_step) and K5 keep the library's:
+// with PivotOps K1 read 0.17 % slower on its main path's launches and K5
+// 0.3–1.9 % at T=1000, though K4 read 7 % and K8 5 % faster (PERF.md).
 template <typename S, int N, bool Pivot = false>
 __device__ __forceinline__ bool chol(const S (&A)[N][N], S (&L)[N][N], S (&inv_d)[N]) {
   bool bad = false;
@@ -317,12 +318,11 @@ struct StepSlot {
 template <class Producer>
 using Staged = WarpRoles<1, Producer::kWarps>;
 
-// Chunk k (of CH steps) of a horizon of T steps walked backward: its first
-// (latest) step and its length.
-template <int CH = kChunk>
+// Chunk k (of kChunk steps) of a horizon of T steps walked backward: its
+// first (latest) step and its length.
 __device__ __forceinline__ void chunk_span(int k, int T, int& t_hi, int& steps) {
-  t_hi = T - 1 - k * CH;
-  steps = t_hi + 1 < CH ? t_hi + 1 : CH;
+  t_hi = T - 1 - k * kChunk;
+  steps = t_hi + 1 < kChunk ? t_hi + 1 : kChunk;
 }
 
 // The carry-dependent chain over one staged chunk, for the instance of lane

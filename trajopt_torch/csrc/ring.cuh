@@ -1,8 +1,9 @@
 // The ring of stages in shared memory that the staged kernels share: K4
 // (ilqr_backward.cu) and K1 (fused_backward.cu) through bwd_step.cuh's
 // staged backward, which walks its chunks backward in time, K2 and K3
-// (rollout.cu), which walk them forward, and K6 (gps.cu), whose ring has
-// three stages.
+// (rollout.cu), which walk them forward, and the staged walk
+// (staged_walk.cuh) of K6, K7 (gps.cu) and K8 (belief.cu), whose rings have
+// three or four stages.
 //
 // A block splits its warps into consumers, which walk a chain that depends on
 // the step before, one lane per instance (or per α and instance), reading
