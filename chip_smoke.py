@@ -28,23 +28,28 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    call_ms), launches per iteration, the plain version's
    ms and the least time the card could take (bound) from this run's bytes
    and operations;
-6. kernel K5 (the parallel-in-time backward) against its plain version:
+6. kernel K5 (the parallel-in-time backward) against its plain version, on
+   the route k5_route picks (a thread-block cluster holding the elements in
+   shared memory; the one-block global-scratch kernel past its capacity):
    float64 at (T, dx, du) = (19, 3, 2), (130, 2, 1) and (2500, 4, 2) with
-   λ ∈ {0, 0.6}; float32 on the SPD problem of tests/test_tpu.py at
-   T ∈ {60, 333, 1000}, dx=4, du=2; a non-PD action Hessian (equal flags,
-   finite outputs); float32 on the first backward inputs of the replan path
-   (T=100) and of the MPC path (horizon 25);
+   λ ∈ {0, 0.6}; float32 on the SPD problem of
+   tests/test_tpu.py at T ∈ {60, 333, 1000}, dx=4, du=2; a non-PD action
+   Hessian (equal flags, finite outputs); float32 on the first backward
+   inputs of the replan path (T=100) and of the MPC path (horizon 25); the
+   two routes bit for bit at the replan's shape, at T=1000 and in float64,
+   and the clusters the card holds at once (cudaOccupancyMaxActiveClusters);
 7. the replan path: make_ilqr_solver on Pendulum-TO-v0, dt=0.05, T=100,
    3 iterations, float32, backward="cuda-pscan"; it must launch K5 at least
    twice in every iteration that works, improve on the initial return and
    land within 1e-4 of backward="pscan" (plain PyTorch);
 8. the MPC path: make_mpc_runner on Pendulum-TO-v0 (examples/ilqr/mpc/
-   pendulum.py: horizon 25, 100 control steps, 10 iterations), cuda-pscan,
+   pendulum.py: horizon 25, 10 iterations; 50 of its 100 control steps), cuda-pscan,
    noise from a seeded generator; finite states, the pendulum upright at the
    end (|wrap(θ)| < 0.6), K5 launched; then the timings of the replan (three
    engines, and one cuda-pscan replan under torch.profiler: device busy time
-   and host calls), of MPC control steps and of K5 at two shapes: its device
-   time per launch (torch.profiler) and the wrapper's time per call;
+   and host calls), of MPC control steps and of K5 at two shapes on each
+   route: its device time per launch (torch.profiler), the wrapper's time
+   per call and the build's spill bytes;
 9. kernels K6 and K7 (the GPS dual chain) against their plain versions:
    float64 at N=50, T=48 for (dx, du) = (2, 1) and (4, 2) with
    α ∈ {1e-16, 1, 1e16}; a non-PD −Quu (equal flags, finite outputs);
@@ -115,10 +120,10 @@ Run from the root of a checkout.  Phases, each of which raises on failure:
    exactly (equal where finite) at the two main-path shapes (N=1: T=60, dims
    2/1; T=50, dims 4/2), in a non-PD case (N=3, T=16, dims 4/2) and with
    β+η scaled so that the pivots leave [2^-100, 2^100); float32 at
-   bench.py:669's shape (T=100, dims 4/2, N=8 and 64), one trip and the
-   damped fixed point from staggered marginals (capped at 4 trips); the
+   bench.py:669's shape (T=100, dims 4/2, N=8 and 64), one trip, and at
+   N=64 the damped fixed point from staggered marginals (capped at 4 trips); the
    two main-path configurations with fp_engine="auto" (LQR-TO-v1 lr, T=60,
-   2 iterations, bench.py:834; Robot-TO-v0 mb, T=50, 2 iterations,
+   1 of bench.py:834's 2 iterations; Robot-TO-v0 mb, T=50, 1 iteration,
    examples/rgps/mb_robot.py): K15 and K16 launched once per fixed-point
    trip, one host sync per trip and one per fixed point, finite
    non-increasing traces within 1e-5 of trajopt_tpu's float64 traces
@@ -185,7 +190,9 @@ N_ROLLOUT_EXACT, T_ROLLOUT_EXACT = 32, 20
 # farm and the scan-engine comparisons of the GPS, belief and eLQR paths
 # below are kept short to hold the script well inside its 1200 s.
 T_REPLAN, ITER_REPLAN, REPLANS = 100, 3, 3
-MPC_HORIZON, MPC_STEPS, MPC_ITER = 25, 100, 10
+# The MPC example runs 50 of its 100 control steps (the swing-up ends near
+# step 30).
+MPC_HORIZON, MPC_STEPS, MPC_ITER = 25, 50, 10
 
 # The GPS paths: the batched swing-up solver at the GPS example's horizon
 # (BASELINE.md:18) over 4096 instances, held against the scan engine on its
@@ -257,20 +264,29 @@ N_ELQR_EXACT, T_ELQR_EXACT = 4, 10
 # engine (K11-K13) equals the fused one (K14) bit for bit in float32: held at
 # the main path's N=64 solve over 10 iterations and on ELQR_EXACT_CASES.
 
+# Pendulum on the kernels (its device functions in csrc/envs.cuh): the
+# batched iLQR path (Pendulum-TO-v1, dt=0.05, T=100, N=2048, 10 iterations,
+# cuda-fused/cuda) and the eLQR path (Pendulum-TO-v0, dt=0.05, T=100, 10
+# iterations, engine="auto" at N=64 and 1024); the float32 K14 check runs 2
+# iterations (its plain version takes seconds an iteration at T=100), the
+# streamed engine holds it bit for bit over all 10.
+T_PEND, N_PEND, PEND_ITER, PEND_K14_CHECK_ITER = 100, 2048, 10, 2
+
 # The robust-GPS paths: K15/K16 at bench.py:669's fixed-point shape (T=100,
 # dims 4/2, batch 8 and 64, float32); the main path at the two configurations
-# of ROADMAP row 13: bench.py:834's solve (LQR-TO-v1, lr, T=60, 2 iterations)
-# and examples/rgps/mb_robot.py's problem (Robot-TO-v0, sigma_scale=1e-4, mb,
-# T=50; 2 of its 10 iterations), both with fp_engine="auto"; each held to the
+# of ROADMAP row 13: bench.py:834's solve (LQR-TO-v1, lr, T=60; 1 of its 2
+# iterations) and examples/rgps/mb_robot.py's problem (Robot-TO-v0,
+# sigma_scale=1e-4, mb, T=50; 1 of its 10 iterations), both with
+# fp_engine="auto" (an outer iteration takes about 28 s); each held to the
 # scan engine in float64 over one iteration with the β-bisection, the fixed
 # point and the α-bisection cut short (the scan engine's p = 28 chains run
 # step by step); run_rgps_batch on 64 perturbed LQR-TO-v1 problems (1 of
 # the solve's 2 iterations).
 T_RGPS_FP, N_RGPS_FP = 100, (8, 64)
 T_RGPS_LQR, T_RGPS_ROBOT, N_RGPS_BATCH = 60, 50, 64
-RGPS_LQR = dict(variant="lr", nb_iter=2, init_action_sigma=10.0, policy_kl_bound=0.25,
+RGPS_LQR = dict(variant="lr", nb_iter=1, init_action_sigma=10.0, policy_kl_bound=0.25,
                 param_nominal_kl_bound=50.0, nominal_variance=1e-8)
-RGPS_ROBOT = dict(variant="mb", nb_iter=2, init_action_sigma=1.0, policy_kl_bound=1.0,
+RGPS_ROBOT = dict(variant="mb", nb_iter=1, init_action_sigma=1.0, policy_kl_bound=1.0,
                   param_nominal_kl_bound=50.0, nominal_variance=1e-8)
 RGPS_SCAN_CUT = dict(nb_iter=1, beta_iters=3, fp_iters=6, alpha_bisect_iters=8)
 # K15/K16 held exactly to their plain versions in float32 (the plain versions
@@ -285,8 +301,9 @@ RGPS_EXACT_CASES = (("LQR-TO-v1 path", 1, T_RGPS_LQR, (2, 1), False, 1.0),
                     ("tiny pivots", 2, 6, (4, 2), False, 1e36),
                     ("huge pivots", 2, 6, (4, 2), False, 1e-32))
 RGPS_BATCH_ITER = 1
-# the whole fixed point of the f32 check, from staggered marginals, capped
-# at 4 trips: the plain versions take 4.5-6.5 s a trip at T=100, dims 4/2
+# the whole fixed point of the f32 check at N=64, from staggered marginals,
+# capped at 4 trips: the plain versions take 4.5-6.5 s a trip at T=100, dims
+# 4/2
 RGPS_FP_CHECK_ITERS = 4
 # float32 tolerances of the largest entry: one trip at T=100, and the whole
 # fixed point; float64 engines held to each other over the cut solve
@@ -325,8 +342,16 @@ def k5_operations(T, dx, du):
     return T * (element + gains) + levels * (T + 1) * combine
 
 
+START = time.perf_counter()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def stage(label):
+    """Log a phase's name beside the seconds since the script started."""
+    log(f"[{time.perf_counter() - START:.0f} s] {label}")
 
 
 def fail(msg):
@@ -440,16 +465,18 @@ def check_backwards(env_v0, env_v1, N, T, dtype, tol, device, reg_modes):
     """Hold K4 and K1 (Cartpole v0 and v1) against their plain versions for
     each ``reg``: gains and dV within ``tol`` of the largest entry, flags
     equal.  Returns the max abs error of each kernel's K on v0 and v0's
-    inputs."""
+    inputs, with each plain version's ms on them at the first ``reg``
+    (``plain_ms``)."""
     from trajopt_torch.core import cuda_fused, cuda_lqr
 
     log(f"backward checks: {dtype}, N={N}, T={T}")
     inp = kernel_inputs(env_v0, N, T, 0, dtype, device)
-    errs = {}
+    errs, plain_ms = {}, {}
     for reg in reg_modes:
         K, kff, dV, bad = cuda_lqr.cuda_ilqr_backward_packed(inp["packed"], inp["lam"], reg)
-        Kp, kffp, dVp, badp = cuda_lqr._ilqr_backward_plain(inp["packed"], inp["lam"], reg)
-        torch.cuda.synchronize()
+        (Kp, kffp, dVp, badp), ms = timed(
+            lambda: cuda_lqr._ilqr_backward_plain(inp["packed"], inp["lam"], reg))
+        plain_ms.setdefault("K4", ms)
         errs["K4"] = errors(f"K4 reg={reg} K", K, Kp, tol)
         errors(f"K4 reg={reg} kff", kff, kffp, tol)
         errors(f"K4 reg={reg} dV", dV, dVp, tol)
@@ -460,20 +487,22 @@ def check_backwards(env_v0, env_v1, N, T, dtype, tol, device, reg_modes):
         for reg in reg_modes:
             args = (env, e["xr"], e["ur"], e["ul"], e["xT"], e["w"], e["lam"], reg)
             K, kff, dV, bad = cuda_fused.cuda_ilqr_backward_fused(*args)
-            Kp, kffp, dVp, badp = cuda_fused.fused_backward_plain(*args)
-            torch.cuda.synchronize()
+            (Kp, kffp, dVp, badp), ms = timed(lambda: cuda_fused.fused_backward_plain(*args))
             err = errors(f"K1 {name} reg={reg} K", K, Kp, tol)
             if name == "v0":
                 errs["K1"] = err
+                plain_ms.setdefault("K1", ms)
             errors(f"K1 {name} reg={reg} kff", kff, kffp, tol)
             errors(f"K1 {name} reg={reg} dV", dV, dVp, tol)
             same_flags(f"K1 {name} reg={reg} bad", bad, badp)
+    inp["plain_ms"] = plain_ms
     return errs, inp
 
 
 def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_inputs=None):
     """Hold K1-K4 against their plain versions; returns the max abs error of
-    each kernel's main output and the inputs, for the timings.  The rollouts
+    each kernel's main output and the inputs, for the timings (with each
+    plain version's ms, ``plain_ms``).  The rollouts
     run on ``rollout_inputs`` (streams, weighting) when given, else under the
     gains of the plain backward on the backward's own trajectory."""
     from trajopt_torch.core import cuda_lqr
@@ -486,7 +515,9 @@ def check_kernels(env_v0, env_v1, N, T, dtype, tol, device, reg_modes, rollout_i
     else:
         streams, w = rollout_inputs
     alphas = torch.tensor(DEFAULT_ALPHAS, dtype=dtype, device=device)
-    errs.update(check_rollouts(env_v0, streams, w, alphas, tol))
+    roll_errs, roll_ms = check_rollouts(env_v0, streams, w, alphas, tol)
+    errs.update(roll_errs)
+    inp["plain_ms"].update(roll_ms)
     pick = torch.arange(streams[0].shape[2], device=device) % alphas.shape[0]
     alpha_l = alphas[pick].contiguous()
     inp.update(streams=streams, w_roll=w, alphas=alphas, alpha_l=alpha_l, env=env_v0)
@@ -497,57 +528,62 @@ def check_rollouts(env, streams, w, alphas, tol, label=""):
     """Hold K2 (every α of ``alphas``) and K3 (instance n at α number n mod
     nA) against their plain versions on the same streams: outputs within
     ``tol`` of the largest entry, ``ok`` flags equal.  Returns each kernel's
-    max abs error (K2's returns, K3's states)."""
+    max abs error (K2's returns, K3's states) and its plain version's ms."""
     from trajopt_torch.core import cuda_rollout
 
-    errs = {}
+    errs, ms = {}, {}
     ret, ok = cuda_rollout.cuda_rollout_returns(env, *streams, w, alphas)
-    retp, okp = cuda_rollout.rollout_returns_plain(env, *streams, w, alphas)
-    torch.cuda.synchronize()
+    (retp, okp), ms["K2"] = timed(lambda: cuda_rollout.rollout_returns_plain(env, *streams, w,
+                                                                            alphas))
     errs["K2"] = errors(f"K2{label} returns", ret, retp, tol)
     same_flags(f"K2{label} ok", ok, okp)
     pick = torch.arange(streams[0].shape[2], device=alphas.device) % alphas.shape[0]
     alpha_l = alphas[pick].contiguous()
     outs = cuda_rollout.cuda_rollout_selected(env, *streams, w, alpha_l)
-    outsp = cuda_rollout.rollout_selected_plain(env, *streams, w, alpha_l)
-    torch.cuda.synchronize()
+    outsp, ms["K3"] = timed(lambda: cuda_rollout.rollout_selected_plain(env, *streams, w,
+                                                                       alpha_l))
     errs["K3"] = errors(f"K3{label} states", outs[0], outsp[0], tol)
     for i, part in enumerate(("actions", "terminal state", "returns")):
         errors(f"K3{label} {part}", outs[i + 1], outsp[i + 1], tol)
-    return errs
+    return errs, ms
 
 
-def check_rollout_exact(env, device):
+def check_rollout_exact(env, device, center=None):
     """ROLLOUT_EXACT_CASES: K2 (11 α) and K3 on the card against their plain
     versions on the CPU, bit for bit; K = 10·N(0, 1), the start state, the
-    references and kff scaled N(0, 1)."""
+    references and kff scaled N(0, 1), the references (and so the start
+    state) shifted by ``center (dx,)`` when given."""
     from trajopt_torch.core import cuda_rollout
     from trajopt_torch.solvers.common import DEFAULT_ALPHAS
 
     N, T = N_ROLLOUT_EXACT, T_ROLLOUT_EXACT
+    dx, du = env.dm_state, env.dm_act
+    name = type(env).__name__
     alphas = torch.tensor(DEFAULT_ALPHAS, dtype=torch.float32, device=device)
     alpha_l = alphas[torch.arange(N, device=device) % alphas.shape[0]].contiguous()
     for label, scale in ROLLOUT_EXACT_CASES:
         rng = np.random.default_rng(21)
-        K = 10.0 * rng.standard_normal((T, 4, N))
+        K = 10.0 * rng.standard_normal((T, du * dx, N))
         kff, xref, uref = (scale * rng.standard_normal(shape)
-                           for shape in ((T, 1, N), (T, 4, N), (T, 1, N)))
+                           for shape in ((T, du, N), (T, dx, N), (T, du, N)))
         streams = [torch.as_tensor(a, dtype=torch.float32, device=device)
                    for a in (K, kff, xref, uref)]
+        if center is not None:
+            streams[2] += torch.tensor(center, dtype=torch.float32, device=device)[:, None]
         w = torch.ones(T + 1, dtype=torch.float32, device=device)
         cpu = [t.cpu() for t in (*streams, w)]
-        log(f"K2/K3 check: float32, {label} (scale {scale:.0e}), N={N}, T={T}, bit for bit "
-            "against the plain versions on the CPU")
+        log(f"K2/K3 check: float32, {name}, {label} (scale {scale:.0e}), N={N}, T={T}, bit "
+            "for bit against the plain versions on the CPU")
         got = cuda_rollout.cuda_rollout_returns(env, *streams, w, alphas)
         ref = cuda_rollout.rollout_returns_plain(env, *cpu, alphas.cpu())
         for part, g, r in zip(("returns", "ok"), got, ref):
-            same_bits(f"K2 {label} {part}", g, r)
+            same_bits(f"K2 {name} {label} {part}", g, r)
         got = cuda_rollout.cuda_rollout_selected(env, *streams, w, alpha_l)
         ref = cuda_rollout.rollout_selected_plain(env, *cpu, alpha_l.cpu())
         nonzero = ref[0][ref[0] != 0].abs()
         log(f"  {label}: states from {nonzero.min().item():.2e} to {nonzero.max().item():.2e}")
         for part, g, r in zip(("states", "actions", "terminal state", "returns"), got, ref):
-            same_bits(f"K3 {label} {part}", g, r)
+            same_bits(f"K3 {name} {label} {part}", g, r)
 
 
 def pscan_problem(T, dx, du, dtype, device, seed=0, non_pd=False):
@@ -616,6 +652,32 @@ def check_k5(device):
                       2e-3)
     cost, A, B = pscan_problem(130, 2, 1, torch.float64, device, non_pd=True)
     check_k5_case("f64 non-PD Cuu at T/2", cost, A, B, 1e-9)
+    check_k5_routes("f64 non-PD Cuu at T/2", cost, A, B)
+    check_k5_routes("f32 T=1000 dx=4 du=2", *pscan_problem(1000, 4, 2, torch.float32, device))
+    check_k5_routes("f64 T=1000 dx=4 du=2 lam=0.6",
+                    *pscan_problem(1000, 4, 2, torch.float64, device, seed=1000))
+
+
+def check_k5_routes(label, cost, A, B):
+    """K5's two routes bit for bit: the cluster route (k5_route's choice,
+    which must be a cluster here) against the global-scratch kernel, and
+    the number of such clusters the card holds at once (at least one)."""
+    from trajopt_torch.core.cuda_pscan import k5_max_clusters, k5_route, launch_route
+
+    T, dx, du = A.shape[0], A.shape[-1], B.shape[-1]
+    route = k5_route(T, dx, A.dtype)
+    if route[0] != "cluster":
+        fail(f"K5 {label}: k5_route chose {route}, not a cluster")
+    held = k5_max_clusters(T, dx, du, A.dtype, route[1])
+    log(f"  K5 {label}: cluster of {route[1]} blocks, {held} such clusters at once")
+    if held < 1:
+        fail(f"K5 {label}: the card holds no cluster of {route[1]} blocks at this shape")
+    got = launch_route(cost, A, B, route)
+    ref = launch_route(cost, A, B, ("global", 0))
+    for part, g, r in zip(("K", "kff", "V", "v", "dV"), (got[0].K, got[0].kff, got[1].V,
+                                                         got[1].v, got[2]),
+                          (ref[0].K, ref[0].kff, ref[1].V, ref[1].v, ref[2])):
+        same_bits(f"K5 {label} cluster vs global route {part}", g, r)
 
 
 def replan_inputs(env, x0, T):
@@ -709,6 +771,28 @@ def device_ms_back_to_back(fn, reps, sleep_cycles=int(2e8)):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_spills(report):
+    """{kernel's mangled name: [registers, spill stores, spill loads]} from a
+    source's ``-Xptxas -v`` build report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(name, [None, None, None])[1:] = nums[1:3]
+        elif name and "Used " in line and "registers" in line:
+            out.setdefault(name, [None, None, None])[0] = int(line.split("Used ")[1].split()[0])
+    return out
+
+
+def kernel_spills(spills, kernel, scalar, dx, du):
+    """[registers, spill stores, spill loads] of one instantiation of a kernel
+    template<S, DX, DU> (``scalar`` "f" or "d"), or None."""
+    key = f"{len(kernel)}{kernel}I{scalar}Li{dx}ELi{du}E"
+    return next((v for k, v in spills.items() if key in k), None)
 
 
 def kept_launches(targets, run):
@@ -2046,6 +2130,7 @@ def elqr_phases(device, card, wrappers):
     main_launches = {**runs[N_ELQR_STREAM][3], "K14": runs[N_ELQR_FUSED][3]["K14"]}
 
     # the timed f32 K14 solve against its plain version over all 10 iterations
+    stage("eLQR: K14 against its plain version")
     log(f"K14 check: float32, the main path's solve, N={N_ELQR_FUSED}, T={T}, nb_iter={it}, "
         f"tolerance {ELQR_F32_SOLVE_TOL:.0e}")
     x0s, kff0, out, _ = runs[N_ELQR_FUSED]
@@ -2085,6 +2170,7 @@ def elqr_phases(device, card, wrappers):
     same_solves(f"f32 N={N_ELQR_FUSED} cuda vs cuda-fused", streamed, fused)
 
     # both kernel engines against the scan engine in float64
+    stage("eLQR: the engines against the scan engine")
     n8 = N_ELQR_SCAN
     x8, kff8 = elqr_inputs(n8, T, 14, torch.float64, device)
     k64 = dict(dtype=torch.float64, device=device)
@@ -2105,6 +2191,7 @@ def elqr_phases(device, card, wrappers):
     log(json.dumps({"elqr_f64_engines_vs_each_other_trace_abs_err": same}))
 
     # timings: ms per solve of the main path at N=64, 1024 and 1, and the scan engine
+    stage("eLQR timings")
     for n in (N_ELQR_FUSED, N_ELQR_STREAM, 1):
         x0s, kff0 = runs[n][:2]
         ms = []
@@ -2134,6 +2221,239 @@ def elqr_phases(device, card, wrappers):
                     "spread": {k: spread(v) for k, v in main_ms.items()}, "gpu": card}))
     return elqr_kernel_rows(card, main_launches, errs, plain_ms, operands,
                             (k14_in, ce.cuda_elqr_solve(env, *k14_in, it)), main_ms)
+
+
+# --------------------------------------------------------------------------------------
+# Pendulum on K1-K3 and K11-K14 (the kernels' Pendulum device functions)
+# --------------------------------------------------------------------------------------
+
+
+def pendulum_envs():
+    """Pendulum-TO-v0, -v1, v0 with periodic=True and v0 with the slew-rate
+    cost, all at dt=0.05."""
+    import trajopt_torch
+
+    return {"v0": trajopt_torch.make("Pendulum-TO-v0", dt=0.05),
+            "v1": trajopt_torch.make("Pendulum-TO-v1", dt=0.05),
+            "periodic": trajopt_torch.make("Pendulum-TO-v0", dt=0.05, periodic=True),
+            "slew": trajopt_torch.make("Pendulum-TO-v0", dt=0.05, slew_rate=True)}
+
+
+def check_pendulum_k1_k3(envs, N, T, dtype, tol, device, reg_modes):
+    """K1 (each ``reg``) and K2/K3 (11 α, under K1's plain gains) against their
+    plain versions on seeded trajectories of each env; returns each kernel's
+    largest max abs error and the last env's inputs."""
+    from trajopt_torch.core import cuda_fused
+    from trajopt_torch.solvers.common import DEFAULT_ALPHAS
+
+    log(f"Pendulum K1-K3 checks: {dtype}, N={N}, T={T}, tolerance {tol:.0e}")
+    errs = {}
+    alphas = torch.tensor(DEFAULT_ALPHAS, dtype=dtype, device=device)
+    for label, env in envs.items():
+        inp = kernel_inputs(env, N, T, 3, dtype, device)
+        for reg in reg_modes:
+            args = (env, inp["xr"], inp["ur"], inp["ul"], inp["xT"], inp["w"], inp["lam"], reg)
+            K, kff, dV, bad = cuda_fused.cuda_ilqr_backward_fused(*args)
+            Kp, kffp, dVp, badp = cuda_fused.fused_backward_plain(*args)
+            torch.cuda.synchronize()
+            err = errors(f"K1 Pendulum {label} reg={reg} K", K, Kp, tol)
+            errs["K1"] = max(errs.get("K1", 0.0), err)
+            errors(f"K1 Pendulum {label} reg={reg} kff", kff, kffp, tol)
+            errors(f"K1 Pendulum {label} reg={reg} dV", dV, dVp, tol)
+            same_flags(f"K1 Pendulum {label} reg={reg} bad", bad, badp)
+            if reg == reg_modes[0]:
+                streams = (Kp, kffp, inp["xr"], inp["ur"])
+        for k, e in check_rollouts(env, streams, inp["w"], alphas, tol,
+                                   f" Pendulum {label}")[0].items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        inp.update(env=env, streams=streams, alphas=alphas,
+                   alpha_l=alphas[torch.arange(N, device=device) % alphas.shape[0]].contiguous())
+    return errs, inp
+
+
+def pendulum_elqr_inputs(N, T, seed, dtype, device, theta0=math.pi, step=0.001):
+    """Pendulum's start (θ = θ₀ + step·i, at rest) and seeded N(0, 1) initial
+    kff: batch-leading x0s (N, 2), kff0 (N, T, 1)."""
+    x0s = torch.zeros(N, 2, dtype=dtype, device=device)
+    x0s[:, 0] = theta0 + step * torch.arange(N, dtype=dtype, device=device)
+    kff0 = np.random.default_rng(seed).standard_normal((N, T, 1))
+    return x0s, torch.as_tensor(kff0, dtype=dtype, device=device)
+
+
+def pendulum_phases(device, card, wrappers):
+    """Pendulum on the kernels: K1-K3 and K11-K14 against their plain
+    versions (float64 small on v0, v1, periodic and, for K1-K3, the slew-rate
+    cost; float32 at the paths' shapes; K2/K3 bit for bit on the CPU's plain
+    versions), the batched iLQR path (K1, K2 and K3 on every iteration), the
+    eLQR path (engine="auto": K14 at N=64, K11-K13 at N=1024, both kernel
+    engines held to the scan engine in float64), and each Pendulum
+    instantiation's device time."""
+    from trajopt_torch.core import cuda_elqr as ce
+    from trajopt_torch.core import cuda_fused, cuda_rollout
+    from trajopt_torch.core.cuda_lqr import to_soa
+    from trajopt_torch.parallel.elqr import make_elqr_solver_batched
+    from trajopt_torch.parallel.mpc import make_ilqr_solver_batched
+
+    envs = pendulum_envs()
+    f32 = dict(dtype=torch.float32, device=device)
+    k64 = dict(dtype=torch.float64, device=device)
+    errs, _ = check_pendulum_k1_k3(envs, N_SMALL, T_SMALL, torch.float64, 1e-9, device, (1, 2))
+    errs32, inp = check_pendulum_k1_k3({k: envs[k] for k in ("v0", "periodic", "v1")}, N_PEND,
+                                       T_PEND, torch.float32, 2e-3, device, (1,))
+    check_rollout_exact(envs["v0"], device, center=(-math.pi, 0.0))
+
+    # eLQR kernels, float64 small: the second iteration's operands on v0, v1
+    # and periodic, K14 over 3 iterations
+    N, T = N_ELQR_SMALL, T_ELQR_SMALL
+    log(f"Pendulum K11-K14 checks: float64, N={N}, T={T}, tolerance 1e-9")
+    for label in ("v0", "v1", "periodic"):
+        env = envs[label]
+        x0s, kff0 = pendulum_elqr_inputs(N, T, 7, torch.float64, device, step=0.02)
+        x0, kff = x0s.T.contiguous(), to_soa(kff0, N)
+        f = ce.cuda_elqr_forward(env, torch.zeros(T, 2, N, **k64), kff,
+                                 torch.zeros(T + 1, 4, N, **k64), torch.zeros(T + 1, 2, N, **k64),
+                                 x0)
+        b = ce.cuda_elqr_backward(env, f[0], f[1], f[2], f[3], f[5])
+        _, e_errs, _ = check_elqr_sweeps(f"f64 Pendulum {label} it2", env, b[0], b[1], b[2],
+                                         b[3], b[5], x0, 1e-9)
+        _, e_errs["K14"], _ = check_k14(f"f64 Pendulum {label} nb_iter={ELQR_SMALL_ITER}", env,
+                                        kff, x0, ELQR_SMALL_ITER, 1e-9)
+        for k, e in e_errs.items():
+            errs[k] = max(errs.get(k, 0.0), e)
+
+    # eLQR kernels, float32 at the streamed engine's first-iteration operands
+    env = envs["v0"]
+    T, N = T_PEND, N_ELQR_STREAM
+    x0s_s, kff0_s = pendulum_elqr_inputs(N, T, 11, torch.float32, device)
+    x0 = x0s_s.T.contiguous()
+    log(f"Pendulum K11-K13 checks: float32, first iteration at N={N}, T={T}, tolerance "
+        f"{ELQR_F32_TOL:.0e} (K13's states and actions {ELQR_F32_TRAJ_TOL:.0e})")
+    operands, e_errs, _ = check_elqr_sweeps(
+        "f32 Pendulum first iteration", env, torch.zeros(T, 2, N, **f32), to_soa(kff0_s, N),
+        torch.zeros(T + 1, 4, N, **f32), torch.zeros(T + 1, 2, N, **f32), x0, x0,
+        ELQR_F32_TOL, ELQR_F32_TRAJ_TOL)
+    errs32.update(e_errs)
+
+    # the eLQR path: engine="auto" at N=64 (K14) and N=1024 (K11-K13)
+    solve = make_elqr_solver_batched(env, T, PEND_ITER, engine="auto", **f32)
+    x0s_f, kff0_f = pendulum_elqr_inputs(N_ELQR_FUSED, T, 12, torch.float32, device)
+    expect = {N_ELQR_FUSED: {"K14": 1},
+              N_ELQR_STREAM: {"K11": PEND_ITER, "K12": PEND_ITER, "K13": PEND_ITER + 2}}
+    runs = {}
+    for n, (x0s, kff0) in ((N_ELQR_FUSED, (x0s_f, kff0_f)), (N_ELQR_STREAM, (x0s_s, kff0_s))):
+        for w in wrappers.values():
+            w.launches = 0
+        out = solve(x0s, kff_init=kff0)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"Pendulum eLQR path N={n} launches: {json.dumps(launches)}")
+        want = {k: expect[n].get(k, 0) for k in wrappers}
+        if launches != want:
+            fail(f"Pendulum eLQR at N={n} launched {launches}, not {want}")
+        if not all(bool(torch.isfinite(t).all()) for t in (out[0].K, out[0].kff, *out[1:])):
+            fail(f"non-finite Pendulum eLQR results at N={n}")
+        trace = out[3].double()
+        log(json.dumps({"metric": "elqr_pendulum", "N": n, "mean_initial_return":
+                        trace[:, 0].mean().item(), "mean_final_return": trace[:, -1].mean().item()}))
+        runs[n] = (x0s, kff0, out)
+    x0s, kff0, fused = runs[N_ELQR_FUSED]
+    k14_in = (to_soa(kff0, N_ELQR_FUSED), x0s.T.contiguous())
+    log(f"Pendulum K14 check: float32, the path's solve, N={N_ELQR_FUSED}, T={T}, "
+        f"nb_iter={PEND_K14_CHECK_ITER}, tolerance {ELQR_F32_SOLVE_TOL:.0e}")
+    _, errs32["K14"], _ = check_k14(f"f32 Pendulum nb_iter={PEND_K14_CHECK_ITER}", env, *k14_in,
+                                    PEND_K14_CHECK_ITER, ELQR_F32_SOLVE_TOL)
+    log(f"Pendulum eLQR engines: float32, N={N_ELQR_FUSED}, nb_iter={PEND_ITER}, cuda (K11-K13) "
+        "against cuda-fused (K14), bit for bit")
+    streamed = make_elqr_solver_batched(env, T, PEND_ITER, engine="cuda", **f32)(x0s, kff_init=kff0)
+    same_solves(f"f32 Pendulum N={N_ELQR_FUSED} cuda vs cuda-fused", streamed, fused)
+    x8, kff8 = pendulum_elqr_inputs(N_ELQR_SCAN, T, 14, torch.float64, device)
+    res = {e: make_elqr_solver_batched(env, T, ELQR_SCAN_ITER, engine=e, **k64)(x8, kff_init=kff8)
+           for e in ("cuda", "cuda-fused", "scan")}
+    for e in ("cuda", "cuda-fused"):
+        diff = (res[e][3] - res["scan"][3]).abs()
+        bound = 1e-8 + 1e-8 * res["scan"][3].abs()
+        log(f"  Pendulum eLQR f64 {e} vs scan, N={N_ELQR_SCAN}, T={T}, nb_iter={ELQR_SCAN_ITER}: "
+            f"trace max err/(1e-8 + 1e-8|scan|)={(diff / bound).max().item():.3e}")
+        if not bool((diff <= bound).all()):
+            fail(f"Pendulum eLQR f64 engine {e} and scan traces differ beyond rtol/atol 1e-8")
+
+    # the batched iLQR path on Pendulum-TO-v1: K1, K2 and K3 on every iteration
+    env1 = envs["v1"]
+    x0 = torch.tensor(env1.x0, **f32).repeat(N_PEND, 1)
+    x0[:, 0] += 1e-4 * torch.arange(N_PEND, **f32)
+    solve = make_ilqr_solver_batched(env1, T_PEND, nb_iter=PEND_ITER, backward="cuda-fused",
+                                     rollout="cuda", **f32)
+    state = solve.init(x0)
+    ret0 = state.last_return
+    per_iter = []
+    for i in range(PEND_ITER):
+        for w in wrappers.values():
+            w.launches = 0
+        state, _ = solve.iteration(state)
+        torch.cuda.synchronize()
+        per_iter.append({k: wrappers[k].launches for k in ("K1", "K2", "K3")})
+        if any(c == 0 for c in per_iter[-1].values()):
+            fail(f"the Pendulum iLQR path's iteration {i} launched {per_iter[-1]}")
+    ret = state.last_return
+    log(json.dumps({"metric": "ilqr_pendulum", "config": f"Pendulum-TO-v1 dt=0.05 T={T_PEND} "
+                    f"N={N_PEND} nb_iter={PEND_ITER} backward=cuda-fused rollout=cuda float32",
+                    "launches_per_iteration": per_iter,
+                    "mean_initial_return": ret0.double().mean().item(),
+                    "mean_final_return": ret.double().mean().item(),
+                    "done": int(state.done.sum())}))
+    if not bool(torch.isfinite(ret).all()):
+        fail("non-finite final returns on the Pendulum iLQR path")
+    if not bool((ret <= ret0).all()):
+        fail(f"{int((ret > ret0).sum())} Pendulum final returns above their initial value")
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve(x0)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(json.dumps({"metric": "ilqr_pendulum_timing", "ms_per_batch_iter":
+                    1e3 * sorted(secs)[1] / PEND_ITER,
+                    "ms_per_batch_iter_runs": [1e3 * t / PEND_ITER for t in secs], "gpu": card}))
+
+    # each Pendulum instantiation's device time at the paths' shapes (v1 for
+    # K1-K3, v0 for K11-K14); bound from the bytes (the operation counts of
+    # OPS_PER_STEP and ELQR_OPS are Cartpole's)
+    e1 = inp["env"]
+    fused_args = (e1, inp["xr"], inp["ur"], inp["ul"], inp["xT"], inp["w"], inp["lam"], 1)
+    calls = {
+        "K1": (lambda: cuda_fused.cuda_ilqr_backward_fused(*fused_args),
+               (inp["xr"], inp["ur"], inp["ul"], inp["xT"], inp["w"], inp["lam"])),
+        "K2": (lambda: cuda_rollout.cuda_rollout_returns(e1, *inp["streams"], inp["w"],
+                                                         inp["alphas"]),
+               (*inp["streams"], inp["w"], inp["alphas"])),
+        "K3": (lambda: cuda_rollout.cuda_rollout_selected(e1, *inp["streams"], inp["w"],
+                                                          inp["alpha_l"]),
+               (*inp["streams"], inp["w"], inp["alpha_l"])),
+        "K11": (lambda: ce.cuda_elqr_forward(env, *operands["K11"][0]), operands["K11"][0]),
+        "K12": (lambda: ce.cuda_elqr_backward(env, *operands["K12"][0]), operands["K12"][0]),
+        "K13": (lambda: ce.cuda_elqr_rollout(env, *operands["K13"][0]), operands["K13"][0]),
+        "K14": (lambda: ce.cuda_elqr_solve(env, *k14_in, PEND_ITER), k14_in),
+    }
+    shapes = {"K1": f"Pendulum-TO-v1 T={T_PEND} N={N_PEND}", "K11": f"Pendulum-TO-v0 T={T} N={N}",
+              "K14": f"Pendulum-TO-v0 T={T} N={N_ELQR_FUSED} nb_iter={PEND_ITER}"}
+    for k, (call, ins) in calls.items():
+        out = call()
+        moved = nbytes(*ins, *(t for t in flat_tensors(out)))
+        ms = device_ms_back_to_back(call, 5 if k == "K14" else 20)[0]
+        log(json.dumps({"metric": "kernel_pendulum", "name": k,
+                        "shape": shapes.get(k, shapes["K1"] if k in ("K2", "K3") else shapes["K11"]),
+                        "ms": ms, "max_abs_err": errs32.get(k), "max_abs_err_f64": errs.get(k),
+                        "bytes": moved, "bytes_ms": 1e3 * moved / HBM_BYTES_PER_S,
+                        "gpu": card}))
+
+
+def flat_tensors(xs):
+    """The tensors of a (nested) tuple or list of outputs, in order."""
+    if torch.is_tensor(xs):
+        yield xs
+        return
+    for x in xs:
+        yield from flat_tensors(x)
 
 
 # --------------------------------------------------------------------------------------
@@ -2258,24 +2578,26 @@ def errors_where_finite(name, got, ref, tol, floor=0.0):
 
 def check_rgps_case(label, packed, qmu, qsig, tol, expect_bad=None):
     """K15 then K16 against their plain versions on the same operands (K16 on
-    the plain θ*, so each kernel is held alone); returns the errors."""
+    the plain θ*, so each kernel is held alone); returns the errors and the
+    plain versions' ms."""
     from trajopt_torch.core import cuda_rgps as cr
 
     mo, so, bad = cr.cuda_rgps_param_backward(packed, qmu, qsig)
-    mo_p, so_p, bad_p = cr.param_backward_plain(packed, qmu, qsig)
+    (mo_p, so_p, bad_p), ms15 = timed(lambda: cr.param_backward_plain(packed, qmu, qsig))
     same_flags(f"K15 {label} flags", bad, bad_p)
     if expect_bad is not None and bool(bad.all()) != expect_bad:
         fail(f"K15 {label}: flags {bad.tolist()}, expected all {expect_bad}")
     e15 = max(errors_where_finite(f"K15 {label} mu_opt", mo, mo_p, tol),
               errors_where_finite(f"K15 {label} sigma_opt", so, so_p, tol))
     kl, qm, qs = cr.cuda_rgps_cubature_kl(packed, mo_p, so_p, qmu, qsig)
-    kl_p, qm_p, qs_p = cr.cubature_kl_plain(packed, mo_p, so_p, qmu, qsig)
+    (kl_p, qm_p, qs_p), ms16 = timed(lambda: cr.cubature_kl_plain(packed, mo_p, so_p, qmu,
+                                                                   qsig))
     # the KL of two nearly equal Gaussians is a difference of O(1) terms:
     # held against the scale of those terms (1), not its own
     e16 = max(errors_where_finite(f"K16 {label} kl", kl, kl_p, tol, floor=1.0),
               errors_where_finite(f"K16 {label} q_new mu", qm, qm_p, tol),
               errors_where_finite(f"K16 {label} q_new sigma", qs, qs_p, tol))
-    return e15, e16
+    return e15, e16, ms15, ms16
 
 
 def check_rgps_kernels(device):
@@ -2302,21 +2624,26 @@ def check_rgps_kernels(device):
                         expect_bad=non_pd if scale == 1.0 else None)
     log(f"  ({time.perf_counter() - t0:.1f} s)")
     log(f"K15/K16 checks: float32 at T={T_RGPS_FP}, dims 4/2, one trip (tolerance "
-        f"{RGPS_F32_TRIP_TOL:.0e}) and the whole fixed point from staggered marginals, "
-        f"fp_iters={RGPS_FP_CHECK_ITERS} (tolerance {RGPS_F32_FP_TOL:.0e})")
+        f"{RGPS_F32_TRIP_TOL:.0e}) and, at N={N_RGPS_FP[-1]}, the whole fixed point from "
+        f"staggered marginals, fp_iters={RGPS_FP_CHECK_ITERS} (tolerance "
+        f"{RGPS_F32_FP_TOL:.0e})")
     errs, operands = {}, {}
     for N in N_RGPS_FP:
         packed, qmu, qsig = rgps_problem(N, T_RGPS_FP, 4, 2, 30 + N, torch.float32, device)
         operands[N] = (packed, qmu, qsig)
         errs[N] = check_rgps_case(f"f32 T={T_RGPS_FP} N={N}", packed, qmu, qsig,
                                   RGPS_F32_TRIP_TOL)
+        if N != N_RGPS_FP[-1]:
+            continue
+        t0 = time.perf_counter()
         packed, qmu, qsig = rgps_problem(N, T_RGPS_FP, 4, 2, 30 + N, torch.float32, device,
                                          kick=True)
         got = cr.rgps_fixed_point_packed(packed, qmu, qsig, fp_iters=RGPS_FP_CHECK_ITERS)
         ref = cr.rgps_fixed_point_packed(packed, qmu, qsig, fp_iters=RGPS_FP_CHECK_ITERS,
                                          backward=cr.param_backward_plain,
                                          cubature=cr.cubature_kl_plain)
-        log(f"  fixed point N={N}: trips {got[5]} (plain {ref[5]}), syncs {got[6]}")
+        log(f"  fixed point N={N}: trips {got[5]} (plain {ref[5]}), syncs {got[6]} "
+            f"({time.perf_counter() - t0:.1f} s)")
         same_flags(f"fixed point N={N} diverged", got[4], ref[4])
         for name, g, r in zip(("q mu", "q sigma", "mu_opt", "sigma_opt"), got[:4], ref[:4]):
             errors(f"fixed point N={N} {name}", g, r, RGPS_F32_FP_TOL)
@@ -2367,6 +2694,7 @@ def rgps_phases(device, card, wrappers):
         cr.cuda_rgps_fixed_point.trips = cr.cuda_rgps_fixed_point.syncs = 0
 
     main = {}
+    stage("robust GPS: the main paths")
     for cfg in ("lqr", "robot"):
         env, T, kw = rgps_config(cfg)
         solve = make_rgps_solver(env, T, fp_engine="auto", **kw, **f32)
@@ -2404,7 +2732,8 @@ def rgps_phases(device, card, wrappers):
             fail(f"RGPS {cfg}: non-finite trace {trace}")
         if not all(b <= a for a, b in zip(trace, trace[1:])):
             fail(f"RGPS {cfg}: the trace {trace} increases")
-        want = jax_reference_trace(cfg)
+        # the frozen trace holds the configuration's first two iterations
+        want = jax_reference_trace(cfg)[:len(trace)]
         rel = float(np.max(np.abs(np.asarray(trace) - want) / np.abs(want)))
         log(json.dumps({"rgps_trace_vs_jax_f64": cfg, "jax": want.tolist(), "card": trace,
                         "max_rel_err": rel, "tol": RGPS_TRACE_TOL}))
@@ -2456,6 +2785,7 @@ def rgps_phases(device, card, wrappers):
                         "gpu": card}))
 
     # each configuration held to the scan engine in float64 at a cut depth
+    stage("robust GPS: the engines in float64")
     k64 = dict(dtype=torch.float64, device=device)
     for cfg in ("lqr", "robot"):
         env, T, kw = rgps_config(cfg)
@@ -2476,6 +2806,7 @@ def rgps_phases(device, card, wrappers):
                         "seconds_scan": res["scan"][2] / 1e3}))
 
     # run_rgps_batch at N=64 on LQR-TO-v1
+    stage("robust GPS: run_rgps_batch")
     env, T, kw = rgps_config("lqr")
     reset()
     kw = dict(kw, nb_iter=RGPS_BATCH_ITER)
@@ -2501,20 +2832,20 @@ def rgps_phases(device, card, wrappers):
     k15_in = k15_reads(packed, qmu, qsig)
     k16_in = [mo, so] + [packed[k] for k in ("sigd", "K", "kff", "sigc", "mu0", "sig0")] + [
         qmu, qsig]
+    # the plain versions' ms: one call each in the check at this shape (K16's
+    # on the plain θ*, the same work)
     calls = {
-        "K15": (lambda: cr.cuda_rgps_param_backward(packed, qmu, qsig),
-                lambda: cr.param_backward_plain(packed, qmu, qsig),
+        "K15": (lambda: cr.cuda_rgps_param_backward(packed, qmu, qsig), errs[N_RGPS_FP[-1]][2],
                 nbytes(*k15_in, mo, so, bad), k15_operations(T, N, 4, 2),
                 ("K15 rgps_param_backward", 151)),
         "K16": (lambda: cr.cuda_rgps_cubature_kl(packed, mo, so, qmu, qsig),
-                lambda: cr.cubature_kl_plain(packed, mo, so, qmu, qsig),
+                errs[N_RGPS_FP[-1]][3],
                 nbytes(*k16_in, kl, qm, qs), k16_operations(T, N, 4, 2),
                 ("K16 rgps_cubature_kl", 534)),
     }
     rows = []
-    for k, (call, plain, moved, ops, (name, line)) in calls.items():
+    for k, (call, plain_ms, moved, ops, (name, line)) in calls.items():
         device_ms, enqueue_ms, _ = device_ms_back_to_back(call, 20)
-        _, plain_ms = timed(plain)
         bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
         row = {
             "name": name, "route": "cuda", "source": "trajopt_torch/csrc/rgps.cu",
@@ -2563,7 +2894,6 @@ def main():
     dev = torch.device("cuda")
 
     # 1. the card
-    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(json.dumps({"python": sys.version.split()[0], "torch": torch.__version__,
@@ -2577,7 +2907,7 @@ def main():
         for line in rep.splitlines():
             line = line.strip()
             spills = "spill" in line and not line.endswith("0 bytes spill stores, 0 bytes spill loads")
-            if "entry function" in line or "registers" in line or spills:
+            if line.startswith("nvcc ") or "entry function" in line or "registers" in line or spills:
                 log(f"  {src}: {line}")
 
     # 3. kernel checks.  float64 at a small shape: the kernels and the plain
@@ -2609,6 +2939,7 @@ def main():
                               main_path_streams(env_v0, x0))
 
     # 4. the main path
+    stage("the main path")
 
     def solver(backward, rollout):
         return make_ilqr_solver_batched(env_v0, T_MAIN, nb_iter=NB_ITER, backward=backward,
@@ -2661,6 +2992,7 @@ def main():
         fail(f"cuda and scan mean final returns differ by {rel4:.3e}")
 
     # 5. timings
+    stage("the main path's timings")
     secs = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2693,17 +3025,11 @@ def main():
         "K4": nbytes(*pk.values(), lam, *k4_out),
     }
     calls = {
-        "K1": (lambda: cuda_fused.cuda_ilqr_backward_fused(*fused_args),
-               lambda: cuda_fused.fused_backward_plain(*fused_args)),
-        "K2": (lambda: cuda_rollout.cuda_rollout_returns(env, *inp["streams"], wr, inp["alphas"]),
-               lambda: cuda_rollout.rollout_returns_plain(env, *inp["streams"], wr,
-                                                          inp["alphas"])),
-        "K3": (lambda: cuda_rollout.cuda_rollout_selected(env, *inp["streams"], wr,
-                                                          inp["alpha_l"]),
-               lambda: cuda_rollout.rollout_selected_plain(env, *inp["streams"], wr,
-                                                           inp["alpha_l"])),
-        "K4": (lambda: cuda_lqr.cuda_ilqr_backward_packed(pk, lam, 1),
-               lambda: cuda_lqr._ilqr_backward_plain(pk, lam, 1)),
+        "K1": lambda: cuda_fused.cuda_ilqr_backward_fused(*fused_args),
+        "K2": lambda: cuda_rollout.cuda_rollout_returns(env, *inp["streams"], wr, inp["alphas"]),
+        "K3": lambda: cuda_rollout.cuda_rollout_selected(env, *inp["streams"], wr,
+                                                         inp["alpha_l"]),
+        "K4": lambda: cuda_lqr.cuda_ilqr_backward_packed(pk, lam, 1),
     }
     meta = {
         "K1": ("K1 fused_backward", "trajopt_torch/csrc/fused_backward.cu",
@@ -2717,14 +3043,14 @@ def main():
     }
     rows = []
     for k in ("K1", "K2", "K3", "K4"):
-        kernel, plain = calls[k]
+        kernel = calls[k]
         # the kernel's device time with launches queued back to back (about
         # 0.5 ms each, so a call's host work would show), and the time per
         # call beside it
         call_ms = time_cuda(kernel, 10)
         ms = device_ms_back_to_back(kernel, 10)[0]
-        # one call: the checks above ran the plain version at this shape
-        plain_ms = timed(plain)[1]
+        # the checks above timed one call of the plain version at this shape
+        plain_ms = inp["plain_ms"][k]
         bytes_ms = 1e3 * moved[k] / HBM_BYTES_PER_S
         ops_ms = 1e3 * OPS_PER_STEP[k] * steps[k] / F32_OPS_PER_S
         count = launches[k] if k != "K4" else k4_launches[k]
@@ -2743,9 +3069,10 @@ def main():
                         "bytes": moved[k], "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                         "gpu": card}))
 
-    log(f"[{time.perf_counter() - t_start:.0f} s] K5 and the single-problem paths")
+    stage("K5 and the single-problem paths")
     # 6. K5 against its plain version
-    from trajopt_torch.core.cuda_pscan import cuda_pilqr_backward, pilqr_backward_plain
+    from trajopt_torch.core.cuda_pscan import (cuda_pilqr_backward, k5_route, launch_route,
+                                               pilqr_backward_plain)
     from trajopt_torch.envs.base import wrap_angle
     from trajopt_torch.parallel.mpc import make_ilqr_solver, make_mpc_runner
 
@@ -2759,6 +3086,7 @@ def main():
                                2e-3)
     check_k5_case(f"f32 MPC path T={MPC_HORIZON} dx=2 du=1 lam=1",
                   *replan_inputs(env_mpc, x0_p, MPC_HORIZON)[:3], 2e-3)
+    check_k5_routes("f32 replan path T=100 dx=2 du=1 lam=1", k5_cost, k5_A, k5_B)
 
     # 7. the replan path
     def replanner(backward, metrics=False):
@@ -2785,6 +3113,7 @@ def main():
         fail(f"cuda-pscan and pscan replan returns differ by {rel:.3e}")
 
     # 8. the MPC example path, then the timings of phases 6-8
+    stage("the MPC path")
     run_mpc = make_mpc_runner(env_mpc, MPC_HORIZON, MPC_STEPS, nb_iter=MPC_ITER,
                               backward="cuda-pscan", device=dev, dtype=torch.float32)
     for w in wrappers.values():
@@ -2850,6 +3179,11 @@ def main():
 
     k5_shapes = (("replan path, T=100 dx=2 du=1", (k5_cost, k5_A, k5_B)),
                  ("SPD problem, T=1000 dx=4 du=2", pscan_problem(1000, 4, 2, torch.float32, dev)))
+    spills = ptxas_spills(reports.get("pscan_backward.cu", ""))
+    log(json.dumps({"k5_registers_spill_stores_loads": {
+        f"{kernel} {scalar} {dx}/{du}": kernel_spills(spills, kernel, scalar, dx, du)
+        for kernel in ("pscan_backward_cluster_kernel", "pscan_backward_kernel")
+        for scalar in "fd" for dx, du in ((2, 1), (3, 2), (4, 1), (4, 2))}}))
     for label, (cost, A, B) in k5_shapes:
         T, dx, du = A.shape[0], A.shape[-1], B.shape[-1]
         pol, val, dV = cuda_pilqr_backward(cost, A, B)
@@ -2857,36 +3191,47 @@ def main():
                        pol.K, pol.kff, val.V, val.v, dV)
         bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
         ops_ms = 1e3 * k5_operations(T, dx, du) / F32_OPS_PER_S
-        call = lambda: cuda_pilqr_backward(cost, A, B)  # noqa: E731
-        device_ms, profiled = device_ms_per_launch(call, 50, "pscan_backward")
-        row = {
-            "name": "K5 pscan_backward", "route": "cuda",
-            "source": "trajopt_torch/csrc/pscan_backward.cu",
-            "replaces": "trajopt_tpu/core/pallas_pscan.py:266",
-            "launches": replan_launches["K5"], "max_abs_err": errs["K5"],
-            # the kernel's own device time; a call back to back (call_ms) is
-            # mostly the wrapper's host work at these sizes
-            "ms": device_ms,
-            "call_ms": time_cuda(call, 50),
-            "plain_ms": time_cuda(lambda: pilqr_backward_plain(cost, A, B), 1),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # no single PyTorch call computes a parallel Riccati scan
-            "library_ms": None,
-        }
-        log(json.dumps({"metric": "kernel", "shape": label, **row,
-                        "profiled_launches": profiled, "bytes": moved,
-                        "bytes_ms": bytes_ms, "ops_ms": ops_ms, "gpu": card}))
-        if T == T_REPLAN:
-            rows.append(row)
+        plain_ms = time_cuda(lambda: pilqr_backward_plain(cost, A, B), 1)
+        chosen = k5_route(T, dx, A.dtype)
+        for route in (chosen, ("global", 0)):
+            call = lambda: launch_route(cost, A, B, route)  # noqa: E731
+            device_ms, profiled = device_ms_per_launch(call, 50, "pscan_backward")
+            kernel = ("pscan_backward_cluster_kernel" if route[0] == "cluster"
+                      else "pscan_backward_kernel")
+            row = {
+                "name": "K5 pscan_backward", "route": "cuda",
+                "source": "trajopt_torch/csrc/pscan_backward.cu",
+                "replaces": "trajopt_tpu/core/pallas_pscan.py:266",
+                # the replan's launches all take the route k5_route picks
+                "launches": replan_launches["K5"] if route == chosen else 0,
+                "max_abs_err": errs["K5"],
+                # the kernel's own device time; a call back to back (call_ms) is
+                # mostly the wrapper's host work at these sizes
+                "ms": device_ms,
+                "call_ms": time_cuda(call, 50),
+                "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                # no single PyTorch call computes a parallel Riccati scan
+                "library_ms": None,
+            }
+            log(json.dumps({"metric": "kernel", "shape": label, "k5_route": list(route), **row,
+                            "profiled_launches": profiled, "bytes": moved,
+                            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                            "registers_spill_stores_loads": kernel_spills(spills, kernel, "f",
+                                                                          dx, du),
+                            "gpu": card}))
+            if T == T_REPLAN and route == chosen:
+                rows.append(row)
 
-    log(f"[{time.perf_counter() - t_start:.0f} s] GPS phases")
+    stage("GPS phases")
     # 9-11. GPS: K6/K7 against their plain versions, the solver path, the
     # GPS-MPC farm, the kernels' timings
     from trajopt_torch.core.cuda_gps import cuda_gps_backward_packed, cuda_gps_forward_kl_packed
 
     wrappers.update(K6=cuda_gps_backward_packed, K7=cuda_gps_forward_kl_packed)
     dual_packed, dual_alpha, dual_checked = check_gps_kernels(dev)
+    stage("the GPS solver path")
     solver_packed, solver_alpha, gps_launches, gps_path_ms = gps_solver_phase(dev, card,
                                                                                 wrappers)
     log("K6/K7 checks: float32 on the solver path's first dual operands, tolerance 1e-4")
@@ -2894,7 +3239,9 @@ def main():
                                     solver_alpha, 1e-4)
     check_k6_exact(solver_packed)
     check_k7_exact(solver_packed)
+    stage("the GPS-MPC farm")
     gps_mpc_phase(dev, card, wrappers)
+    stage("K6/K7 timings")
     gps_rows = gps_kernel_rows("solver path", solver_packed, solver_alpha, gps_launches,
                                solver_checked, card, gps_path_ms)
     gps_kernel_rows("dual chain benchmark shape", dual_packed, dual_alpha, gps_launches,
@@ -2908,7 +3255,7 @@ def main():
     from trajopt_torch.core.cuda_bsp import cuda_bsp_episode, cuda_bsp_solve
 
     wrappers.update(K8=cuda_bsp_backward_packed, K9=cuda_bsp_solve, K10=cuda_bsp_episode)
-    log(f"[{time.perf_counter() - t_start:.0f} s] belief phases")
+    stage("belief phases")
     bench_packed, bench_lam, k8_err = check_k8(dev)
     solver_packed, solver_lam, k8_launches, k8_path_ms = bsp_solver_phase(dev, card, wrappers)
     log("K8 checks: float32 on the batched solver's first backward operands, tolerance 1e-4")
@@ -2919,15 +3266,17 @@ def main():
            card)
     rows.append(k8_row("batched solver's first backward", solver_packed, solver_lam,
                        k8_launches, solver_err, card, k8_path_ms))
-    log(f"[{time.perf_counter() - t_start:.0f} s] K9 checks")
+    stage("K9 checks")
     rows.append(k9_phase(dev, card, wrappers, check_k9(dev)))
-    log(f"[{time.perf_counter() - t_start:.0f} s] belief-MPC episode")
+    stage("belief-MPC episode")
     rows.append(bsp_episode_phase(dev, card, wrappers))
-    log(f"[{time.perf_counter() - t_start:.0f} s] eLQR phases")
+    stage("eLQR phases")
     rows += elqr_phases(dev, card, wrappers)
-    log(f"[{time.perf_counter() - t_start:.0f} s] robust-GPS phases")
+    stage("Pendulum on K1-K3 and K11-K14")
+    pendulum_phases(dev, card, wrappers)
+    stage("robust-GPS phases")
     rows += rgps_phases(dev, card, wrappers)
-    log(f"[{time.perf_counter() - t_start:.0f} s] done")
+    stage("done")
 
     # 17. the kernels line, then the device line last
     log(json.dumps({"kernels": rows}))

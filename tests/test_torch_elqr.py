@@ -4,7 +4,8 @@
 Pendulum-TO-v0 and LQR-TO-v0, with its Jacobians at the action bound and the
 cart bound (jnp.clip's ½ tie), and ``quadratize_cost_elqr`` at rtol 1e-10;
 ``make_elqr_solver`` on Cartpole-TO-v0 (T=8, 3
-iterations) and Pendulum-TO-v0 (dt=0.05, T=6, 2 iterations) at rtol 1e-8;
+iterations) and Pendulum-TO-v0 (dt=0.05, T=6, 2 iterations) at rtol 1e-8,
+the kernel engines' plain versions on the latter too;
 the host ``eLQR`` on LQR-TO-v0 (T=20, 5 iterations); the raises.  The
 initial feedforward is JAX's draw, handed to the port as ``kff_init``.
 Where eLQR re-chooses the state at the goal, kff is rounding residue (of
@@ -169,6 +170,23 @@ def test_make_elqr_solver_matches_jax(cfg):
         np.testing.assert_allclose(got.numpy(), w, **TOL)
 
 
+@pytest.mark.parametrize("engine", ["cuda", "cuda-fused"])
+def test_kernel_engines_plain_match_jax_on_pendulum(engine):
+    """The kernel engines on Pendulum-TO-v0 (their device functions in
+    csrc/envs.cuh) run K11-K13's and K14's plain versions on CPU tensors;
+    they agree with JAX's solve of the pendulum case above."""
+    solves, x0s = _jax_results()
+    name, T, it, kw = PENDULUM
+    (want, kff0), x0 = solves[1], x0s[1]
+    solve = make_elqr_solver_batched(_envs(name, **kw)[1], T, it, engine=engine, device="cpu",
+                                     dtype=torch.float64)
+    ctl, xs, us, trace = solve(_t(x0)[None], kff_init=_t(kff0)[None])
+    np.testing.assert_allclose(ctl.K[0].numpy(), want[0].K, **TOL)
+    np.testing.assert_allclose(ctl.kff[0].numpy(), want[0].kff, **TOL)
+    for got, w in zip((xs[0], us[0], trace[0]), want[1:]):
+        np.testing.assert_allclose(got.numpy(), w, **TOL)
+
+
 @reference(__file__)
 def _jax_host(T, it):
     """The host eLQR on LQR-TO-v0: trace, final reference, controller, kff0."""
@@ -202,10 +220,12 @@ def test_raises():
         make_elqr_solver_batched(cart, 8, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         make_elqr_solver_batched(cart, 8, engine="pallas", device="cpu")
-    for name in ("Pendulum-TO-v0", "LQR-TO-v0"):
-        for engine in ("cuda", "cuda-fused"):
-            with pytest.raises(ValueError):
-                make_elqr_solver_batched(trajopt_torch.make(name), 8, engine=engine, device="cpu")
+    for engine in ("cuda", "cuda-fused"):
+        with pytest.raises(ValueError):
+            make_elqr_solver_batched(trajopt_torch.make("LQR-TO-v0"), 8, engine=engine,
+                                     device="cpu")
+        make_elqr_solver_batched(trajopt_torch.make("Pendulum-TO-v0"), 8, engine=engine,
+                                 device="cpu")
     with pytest.raises(ValueError, match="slew"):
         make_elqr_solver_batched(cart.replace(slew_rate=True), 8, engine="cuda", device="cpu")
     lqr = trajopt_torch.make("LQR-TO-v1")

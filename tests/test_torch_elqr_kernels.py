@@ -221,8 +221,12 @@ def test_auto_engine_choice():
     assert pick(cart, 129, "cuda") == "cuda"
     assert pick(trajopt_torch.make("Cartpole-TO-v1"), 1024, "cuda") == "cuda"
     assert pick(cart, 64, "cpu") == "scan"
-    for env in (trajopt_torch.make("Pendulum-TO-v0"), trajopt_torch.make("LQR-TO-v0"),
-                cart.replace(slew_rate=True)):
+    pend = trajopt_torch.make("Pendulum-TO-v0")
+    assert pick(pend, 64, "cuda") == "cuda-fused"
+    assert pick(trajopt_torch.make("Pendulum-TO-v1"), 1024, "cuda") == "cuda"
+    assert pick(pend, 64, "cpu") == "scan"
+    for env in (trajopt_torch.make("LQR-TO-v0"), cart.replace(slew_rate=True),
+                pend.replace(slew_rate=True)):
         assert pick(env, 64, "cuda") == "scan"
 
 

@@ -1,7 +1,8 @@
 """Parity of K1's plain version (trajopt_torch/core/cuda_fused.py) with the
 interpret-mode ``pallas_ilqr_backward_fused`` of trajopt_tpu, float64 on the
-CPU: Cartpole v0 on a trajectory with actions exactly at ±umax, v1 (cos/sin
-features) with reg 2, and the slew-rate cost under a sigmoid activation.
+CPU: Cartpole and Pendulum v0 on a trajectory with actions exactly at ±umax,
+v1 (cos/sin features) with reg 2, and the slew-rate cost under a sigmoid
+activation.
 
 The interpret-mode kernel runs with ``time_chunk=1``: the interpreter compiles
 the unrolled chunk body, so one step per grid trip keeps the call short.  The
@@ -70,6 +71,9 @@ def _trajectory_live(jenv, N, T, seed, saturate):
         ("Cartpole-TO-v0", {}, 1, 0.1, True, None),
         ("Cartpole-TO-v1", {}, 2, 0.7, False, None),
         ("Cartpole-TO-v0", {"slew_rate": True}, 1, 0.2, False, {"mult": 0.5, "shift": 4.0}),
+        ("Pendulum-TO-v0", {}, 1, 0.1, True, None),
+        ("Pendulum-TO-v1", {}, 2, 0.7, False, None),
+        ("Pendulum-TO-v0", {"slew_rate": True}, 1, 0.2, False, {"mult": 0.5, "shift": 4.0}),
     ],
 )
 def test_k1_plain_matches_pallas_fused_interpret(name, kw, reg, lam, saturate, activation):

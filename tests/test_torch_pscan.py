@@ -164,3 +164,32 @@ def test_k5_wrapper_never_falls_back():
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_pscan.cuda_pilqr_backward(cost, z(T, dx, dx), z(T, dx, du))
     assert cuda_pscan.cuda_pilqr_backward.launches == 0
+
+
+@pytest.mark.parametrize("T,dx,dtype,route", [
+    (100, 2, torch.float32, ("cluster", 1)),     # the replan
+    (25, 2, torch.float32, ("cluster", 1)),      # the MPC path
+    (60, 4, torch.float32, ("cluster", 1)),
+    (333, 4, torch.float32, ("cluster", 16)),
+    (1000, 4, torch.float32, ("cluster", 16)),
+    (19, 3, torch.float64, ("cluster", 1)),
+    (130, 2, torch.float64, ("cluster", 16)),
+    (1000, 4, torch.float64, ("cluster", 16)),
+    (2500, 4, torch.float64, ("cluster", 16)),
+    (4095, 4, torch.float32, ("cluster", 16)),   # 256 positions a block
+    (4096, 4, torch.float32, ("global", 0)),     # past the cluster's capacity
+    (4063, 4, torch.float64, ("cluster", 16)),
+    (4064, 4, torch.float64, ("global", 0)),     # past a block's shared memory
+])
+def test_k5_route_is_a_function_of_the_shape(T, dx, dtype, route):
+    """K5's route at chip_smoke.py's shapes and at the cluster route's edges:
+    a cluster of C blocks holds T+1 positions at one thread each (at most 256
+    a block) with two copies of their elements in a block's shared memory;
+    the global-scratch kernel takes the rest."""
+    assert cuda_pscan.k5_route(T, dx, dtype) == route
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    C = route[1] or cuda_pscan.K5_MAX_CLUSTER
+    P = -(-(T + 1) // C)
+    fits = (P <= cuda_pscan.K5_MAX_THREADS
+            and cuda_pscan.k5_cluster_bytes(P, dx, itemsize) <= cuda_pscan.K5_SMEM_BYTES)
+    assert fits == (route[0] == "cluster")

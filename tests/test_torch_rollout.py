@@ -1,7 +1,9 @@
 """Parity of the port's rollouts with trajopt_tpu's, float64 on the CPU: the
 plain versions of K2 (all-α returns) and K3 (per-instance selected α) against
-the interpret-mode ``rollout_all_alphas_pallas``/``pallas_rollout_selected``,
-and the scan engine's ``rollout_tracking`` against JAX's.  The JAX references
+the interpret-mode ``rollout_all_alphas_pallas``/``pallas_rollout_selected``
+and per-lane JAX rollouts, on Cartpole and Pendulum, and the scan engine's
+``rollout_tracking`` against JAX's; the env kinds and fields the kernels
+take (``env_kernel_args``).  The JAX references
 (and the JAX rollouts that make the inputs) are frozen
 (``tests/make_torch_refs.py``)."""
 
@@ -14,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+import trajopt_torch
 import trajopt_tpu
 from trajopt_torch.core.cuda_lqr import lane_pad, pad_lanes
 from trajopt_torch.core.cuda_rollout import (
     cuda_rollout_returns,
     cuda_rollout_selected,
+    env_kernel_args,
     pack_rollout,
     unpack_selected,
 )
@@ -74,6 +78,9 @@ def _t(*arrays):
         ("Cartpole-TO-v0", {}, None),
         ("Cartpole-TO-v1", {}, None),
         ("Cartpole-TO-v0", {"slew_rate": True}, {"mult": 0.5, "shift": 4.0}),
+        ("Pendulum-TO-v0", {}, None),
+        ("Pendulum-TO-v1", {}, None),
+        ("Pendulum-TO-v0", {"slew_rate": True}, {"mult": 0.5, "shift": 4.0}),
     ],
 )
 def test_k2_k3_plain_match_pallas_interpret(name, kw, activation):
@@ -157,6 +164,61 @@ def test_k3_plain_selected_alpha_per_lane():
     np.testing.assert_allclose(states.numpy(), np.asarray(s_j), **TOL)
     np.testing.assert_allclose(actions.numpy(), np.asarray(a_j), **TOL)
     np.testing.assert_allclose(r_l[:N].numpy(), np.sum(c_j, axis=1), rtol=1e-10)
+
+
+@pytest.mark.parametrize("name", ["Pendulum-TO-v0", "Pendulum-TO-v1"])
+def test_k3_plain_selected_alpha_per_lane_pendulum(name):
+    """Phase B with a different α per instance on Pendulum equals
+    per-instance JAX rollout_tracking, as on Cartpole above."""
+    jenv, tenv = _envs(name, {"dt": 0.05})
+    N, T = 5, 8
+    K, kff, xref, uref = _problem(jenv, N, T, seed=1)
+    alphas = np.array([1.0, 0.31, 0.1, 0.031, 0.001])
+    n_pad = lane_pad(N)
+    w = make_weighting(T, None, device="cpu", dtype=torch.float64)
+    xs_l, us_l, xT_l, r_l = cuda_rollout_selected(
+        tenv, *pack_rollout(*_t(K, kff, xref, uref), n_pad), w,
+        pad_lanes(torch.as_tensor(alphas), n_pad),
+    )
+    states, actions = unpack_selected(xs_l, us_l, xT_l, N)
+    w_j = jax_weighting(T, None)
+
+    def one(K1, kff1, xr, ur, a):
+        return jax_rollout_tracking(jenv, JaxPolicy(K=K1, kff=kff1), a, xr[0], xr, ur, w_j)
+
+    s_j, a_j, c_j = frozen(__file__, f"per-lane-{name}", lambda: jax.jit(jax.vmap(one))(
+        *(jnp.asarray(x) for x in (K, kff, xref, uref, alphas))))
+    assert np.any(np.abs(actions.numpy()) == jenv.umax[0])
+    np.testing.assert_allclose(states.numpy(), np.asarray(s_j), **TOL)
+    np.testing.assert_allclose(actions.numpy(), np.asarray(a_j), **TOL)
+    np.testing.assert_allclose(r_l[:N].numpy(), np.sum(c_j, axis=1), rtol=1e-10)
+
+
+@pytest.mark.parametrize("name,kw,kind", [
+    ("Cartpole-TO-v0", {}, 0), ("Cartpole-TO-v1", {}, 1), ("Pendulum-TO-v0", {}, 2),
+    ("Pendulum-TO-v1", {}, 3), ("Pendulum-TO-v0", {"dt": 0.05, "periodic": True}, 2),
+    ("Pendulum-TO-v1", {"slew_rate": True, "umax": (2.5,)}, 3),
+])
+def test_env_kernel_args_gives_kind_and_fields(name, kw, kind):
+    """The C entry points' env kind (csrc/envs.cuh ``with_env``) and the env's
+    fields as EnvParams, the unused tail zero."""
+    env = trajopt_torch.make(name, **kw)
+    got, p = env_kernel_args(env, env.dm_state, env.dm_act)
+    assert got == kind
+    assert p.dt == env.dt
+    for field, size in (("g", 8), ("gw", 8), ("uw", 4), ("umax", 4), ("xmax", 8)):
+        vals = tuple(float(v) for v in getattr(env, field))
+        assert tuple(getattr(p, field)) == vals + (0.0,) * (size - len(vals))
+    assert (p.periodic, p.slew_rate) == (int(env.periodic), int(env.slew_rate))
+    with pytest.raises(ValueError, match="streams have"):
+        env_kernel_args(env, env.dm_state + 1, env.dm_act)
+
+
+@pytest.mark.parametrize("name", ["LQR-TO-v0", "Robot-TO-v0"])
+def test_env_kernel_args_refuses_envs_without_device_functions(name):
+    env = trajopt_torch.make(name)
+    with pytest.raises(ValueError, match="no CUDA kernel is written for"):
+        env_kernel_args(env, env.dm_state, env.dm_act)
 
 
 @pytest.mark.parametrize("name", ["Cartpole-TO-v0", "Cartpole-TO-v1"])

@@ -10,7 +10,8 @@ The scripts run on a machine with a CUDA card, from the root of a checkout:
 ``--kernels`` picks the set of kernels a script measures (each script lists
 its sets, one a redesign: ``K11,K12,K2,K3`` for the eLQR sweeps and K2/K3's
 quotient, ``K6,K7,K13`` for the GPS backward and the eLQR rollout, ``K7,K8``
-for the GPS forward KL and the belief-value backward, …).
+for the GPS forward KL and the belief-value backward, ``K5`` for the
+parallel-in-time backward, …).
 
 ``--parent`` names the ``csrc`` directory of the commit to compare against,
 unpacked beforehand, for example with
@@ -202,3 +203,38 @@ def dump(path, obj):
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(obj, indent=1))
+
+
+def k5_call(label, cost, A, B, cluster=None):
+    """One launch of K5 from library ``label`` on CUDA tensors, outputs (K,
+    kff, S, s, dV): with ``cluster`` None through the entry point of the
+    kernels before the cluster route (no route argument: the one-block
+    global-scratch kernel), else through this tree's with that route
+    argument (0 the global route, C a cluster of C blocks)."""
+    T, dx, du = A.shape[0], A.shape[-1], B.shape[-1]
+    ins = [x.contiguous() for x in (cost.Cxx, cost.cx, cost.Cuu, cost.cu, cost.Cxu, A, B)]
+    kw = dict(dtype=A.dtype, device=A.device)
+    outs = [torch.empty(T, du, dx, **kw), torch.empty(T, du, **kw), torch.empty(T + 1, dx, dx, **kw),
+            torch.empty(T + 1, dx, **kw), torch.empty(2, **kw)]
+    scratch = torch.empty(2 * (3 * dx * dx + 2 * dx) * (T + 1), **kw)
+    fn = libs[label].trajopt_pscan_backward
+    P, I = ctypes.c_void_p, ctypes.c_int
+    route = [] if cluster is None else [cluster]
+    fn.argtypes = [I, I, I] + [P] * 13 + [I] * (1 + len(route)) + [P]
+    code = _build.DTYPE_CODES[str(A.dtype)]
+    rc = fn(code, dx, du, *(t.data_ptr() for t in ins + outs + [scratch]), T, *route,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"K5 {label}")
+    return outs
+
+
+def k5_wrapper(label, cluster=None):
+    """A stand-in for ``cuda_pscan.cuda_pilqr_backward`` (its contract) that
+    launches K5 from library ``label`` as :func:`k5_call` does."""
+    from trajopt_torch.core.types import LinearPolicy, QuadraticValue
+
+    def call(cost, A, B):
+        K, kff, S, s, dV = k5_call(label, cost, A, B, cluster)
+        return (LinearPolicy(K=K, kff=kff),
+                QuadraticValue(V=S, v=s, v0=torch.zeros_like(s[:, 0])), dV)
+    return call

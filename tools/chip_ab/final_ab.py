@@ -60,6 +60,18 @@ launches, at bench.py:511 and at Car's (4, 2), the GPS and BSP outer
 iterations; a GPS outer iteration under torch.profiler; clock64 stamps of
 this tree's K6, K7 and K8 walks; registers and spills.
 
+``--kernels K5`` (the parallel-in-time backward): this tree's K5 (the
+cluster route k5_route picks, and the global route) bit for bit against the
+parent's (the one-block global-scratch kernel) on each of the 6 launches of
+chip_smoke.py's replan (kept under the parent's kernel), at T=1000 dims 4/2,
+the MPC path's first backward, T=60 and 333, and chip_smoke.py's float64
+(λ 0 and 0.6) and non-PD problems; the replan's outputs with the parent's
+and this tree's wrappers; chip_smoke.py's K5 checks on this tree; in turns
+(parent, tree, tree, parent) K5's device ms (torch.profiler) on each replan
+launch and at T=1000 4/2 (and the global route at both), and the replan's
+ms; clock64 stamps of this tree's cluster kernel at both shapes; registers
+and spills.
+
 Every failed check or unequal output is listed under ``failures``.  See
 common.py for how to run it."""
 import ctypes
@@ -70,6 +82,7 @@ import numpy as np
 
 import common as C
 from common import log, torch
+from patches import K5_CLUSTER_STAMPS, k5_stamp_report
 from patches import ALWAYS_PIVOT, BELIEF_WALK_STAMPS, CHUNK_COUNT, DIV_COUNT, GPS_WALK_STAMPS, K13_NO_PREFETCH, \
     K13_STAMP_NAMES, NEW_K6_STAMPS, WALK_K6_NAMES, WALK_K7_NAMES, WALK_K8_NAMES, k13_stamps, \
     new_k6_report, stamp_report, stamps_per_step, sweep_stamps, walk_report
@@ -773,6 +786,63 @@ def kl_belief(opts, res):
     log(json.dumps(res["stamps"]))
 
 
+def k5(opts, res):
+    from step0 import k5_problems, k5_replan, solve_ms, stamp_buffer
+
+    res["failures"] = []
+    stamped = C.patched_copy(C.NEW, K5_CLUSTER_STAMPS, "ab_k5_stamped")
+    C.build_variants({"k5 par": opts.parent / "pscan_backward.cu",
+                      "k5 new": C.NEW / "pscan_backward.cu",
+                      "k5 new stamped": stamped / "pscan_backward.cu"})
+    res["ptxas"] = C.reports
+    log(json.dumps(res["ptxas"]))
+    kept, _ = k5_replan(C.k5_wrapper("k5 par"))
+    problems = k5_problems(kept)
+    same = res["bits_equal_parent"] = {}
+    res["routes"] = {}
+    for key, a in problems.items():
+        T, dx = a[1].shape[0], a[1].shape[-1]
+        route = cp.k5_route(T, dx, a[1].dtype)
+        res["routes"][key] = route
+        ref = C.digest(C.k5_call("k5 par", *a))
+        got = [C.digest(C.k5_call("k5 new", *a, cluster=c)) for c in {route[1], 0}]
+        equal(res, f"K5 {key} ({route[0]} route and global)", same, [g == ref for g in got])
+    # the replan itself, through this tree's wrapper, against the parent's
+    C.use("pscan_backward.cu", "k5 new")
+    kept_new, _ = k5_replan(cp.cuda_pilqr_backward)
+    equal(res, "K5 replan launches through this tree's wrapper", same,
+          [C.digest(list(x)) == C.digest(list(y)) for x, y in zip(kept_new, kept)]
+          + [len(kept_new) == len(kept) == 6])
+    log(json.dumps(same))
+    check(res, "chip_smoke check_k5 on this tree", lambda: chip_smoke.check_k5(dev))
+
+    timed_keys = [k for k in problems if k.startswith("replan")] + ["SPD T=1000 4/2"]
+    res["turns"] = {}
+    for lab in ("par", "new", "new", "par"):
+        d = {}
+        for key in timed_keys:
+            a = problems[key]
+            runs = [(lab, None)] if lab == "par" else [
+                ("new", cp.k5_route(a[1].shape[0], a[1].shape[-1], a[1].dtype)[1]),
+                ("new global", 0)]
+            for name, c in runs:
+                d[f"{key} {name}"] = chip_smoke.device_ms_per_launch(
+                    lambda: C.k5_call(f"k5 {lab}", *a, cluster=c), 50, "pscan_backward")[0]
+        wrapper = C.k5_wrapper("k5 par") if lab == "par" else cp.cuda_pilqr_backward
+        d["replan ms"] = k5_replan(wrapper)[1]
+        res["turns"].setdefault(lab, []).append(d)
+        log(lab, json.dumps(d))
+    fn, buf = stamp_buffer("k5 new stamped", "k5_stamps")
+    res["stamps"] = {}
+    for key in ("replan launch 1", "SPD T=1000 4/2"):
+        a = problems[key]
+        C.k5_call("k5 new stamped", *a, cluster=cp.k5_route(a[1].shape[0], a[1].shape[-1],
+                                                               a[1].dtype)[1])
+        fn(buf, 1)
+        res["stamps"][key] = k5_stamp_report(list(buf))
+    log(json.dumps(res["stamps"]))
+
+
 if __name__ == "__main__":
     C.run({"K2,K3,K11,K12,K14": sweeps, "K6,K7,K13,K14": gps_k13, "K1,K4,K5,K6,K7,K8": pivots,
-           "K7,K8": kl_belief})
+           "K7,K8": kl_belief, "K5": k5})

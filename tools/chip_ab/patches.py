@@ -591,3 +591,96 @@ ALWAYS_PIVOT = {"bwd_step.cuh": [("template <typename S, int N, bool Pivot = fal
 # takes PivotOps').
 K8_LIBRARY_FACTOR = {"belief.cu": [("    k.bad = chol<S, A, true>(Ds, Lf, inv_d) || k.bad;\n",
                                     "    k.bad = chol(Ds, Lf, inv_d) || k.bad;\n", 1)]}
+
+
+# clock64 stamps of K5, thread 0 of block 0, per level: the loads of the
+# element and its partner (the one-block kernel) or of the partner alone (the
+# cluster kernel), the combine, the stores, the barrier; then the element
+# build, the values and gains, and the dV reduction.
+K5_STAMP_NAMES = {1: "loads", 2: "combine", 3: "stores", 4: "barrier"}
+K5_PHASE_NAMES = {0: "elements", 6: "values_gains", 7: "dv"}
+K5_GLOBAL_STAMPS = {"pscan_backward.cu": [
+    ('#include "gj_inv.cuh"\n', '#include "gj_inv.cuh"\n' + stamp_header("k5_stamps"), 1),
+    ("  // 1. elements", "  STAMP_BEGIN\n  // 1. elements", 1),
+    ("  __syncthreads();\n\n  // 2. the suffix scan", "  __syncthreads();\n  STAMP(0)\n\n  // 2. the suffix scan", 1),
+    ("      else identity_elem(e2);\n      combine(e1, e2, o);\n      store_elem(dst, n, t, o);\n    }\n    __syncthreads();\n",
+     "      else identity_elem(e2);\n      TOUCH(e1.A, e1.b, e1.C, e1.eta, e1.J, e2.A, e2.b, e2.C, e2.eta, e2.J)\n"
+     "      STAMP(1)\n      combine(e1, e2, o);\n      TOUCH(o.A, o.b, o.C, o.eta, o.J)\n      STAMP(2)\n"
+     "      store_elem(dst, n, t, o);\n      STAMP(3)\n    }\n    __syncthreads();\n    STAMP(4)\n    STAMP_COUNT(5)\n", 1),
+    ("  __shared__ S red[K5_MAX_THREADS / 32];\n", "  STAMP(6)\n  __shared__ S red[K5_MAX_THREADS / 32];\n", 1),
+    ("  dv1 = block_sum(dv1, red);\n", "  dv1 = block_sum(dv1, red);\n  STAMP(7)\n", 1),
+]}
+K5_CLUSTER_STAMPS = {"pscan_backward.cu": [
+    ('#include "gj_inv.cuh"\n', '#include "gj_inv.cuh"\n' + stamp_header("k5_stamps"), 1),
+    ("  const bool live = l < P && t < n;\n", "  const bool live = l < P && t < n;\n  STAMP_BEGIN\n", 1),
+    ("    store_elem(buf[0], P, l, e);\n  }\n  cluster_barrier(cluster, C);\n",
+     "    store_elem(buf[0], P, l, e);\n  }\n  cluster_barrier(cluster, C);\n  STAMP(0)\n", 1),
+    ("      else load_elem(in_block(cluster, buf[cur], u / P, rank), P, u % P, e2);\n      combine(e, e2, o);\n"
+     "      e = o;\n      store_elem(buf[cur ^ 1], P, l, e);\n    }\n    cluster_barrier(cluster, C);\n",
+     "      else load_elem(in_block(cluster, buf[cur], u / P, rank), P, u % P, e2);\n"
+     "      TOUCH(e2.A, e2.b, e2.C, e2.eta, e2.J)\n      STAMP(1)\n      combine(e, e2, o);\n"
+     "      TOUCH(o.A, o.b, o.C, o.eta, o.J)\n      STAMP(2)\n      e = o;\n      store_elem(buf[cur ^ 1], P, l, e);\n"
+     "      STAMP(3)\n    }\n    cluster_barrier(cluster, C);\n    STAMP(4)\n    STAMP_COUNT(5)\n", 1),
+    ("  // 4. dV in the one-block kernel's order.", "  STAMP(6)\n  // 4. dV in the one-block kernel's order.", 1),
+    ("      a.dV[1] = dv1;\n    }\n    return;\n", "      a.dV[1] = dv1;\n    }\n    STAMP(7)\n    return;\n", 1),
+    ("      a.dV[1] = dv1;\n    }\n  }\n}\n", "      a.dV[1] = dv1;\n    }\n  }\n  STAMP(7)\n}\n", 1),
+]}
+
+
+def k5_stamp_report(raw):
+    """Cycles a level (loads, combine, stores, barrier; thread 0 of block 0,
+    over the positions it owns) and of each other phase, from K5's stamps."""
+    levels = max(raw[5], 1)
+    out = {"levels": raw[5]}
+    out.update({name: raw[i] / levels for i, name in K5_STAMP_NAMES.items()})
+    out["level_total"] = sum(out[name] for name in K5_STAMP_NAMES.values())
+    out.update({name: raw[i] for i, name in K5_PHASE_NAMES.items()})
+    return out
+
+
+# One copy of the elements in the cluster kernel: each level reads the
+# partner, meets the cluster's barrier, then writes, and meets it again.
+K5_ONE_COPY = {"pscan_backward.cu": [
+    ("  S* buf[2] = {reinterpret_cast<S*>(k5_smem), reinterpret_cast<S*>(k5_smem) + E * P};\n"
+     "  S* terms = buf[1] + E * P;",
+     "  S* buf[2] = {reinterpret_cast<S*>(k5_smem), reinterpret_cast<S*>(k5_smem)};\n"
+     "  S* terms = buf[1] + E * P;", 1),
+    ("      combine(e, e2, o);\n      e = o;\n      store_elem(buf[cur ^ 1], P, l, e);\n    }\n    cluster_barrier(cluster, C);\n",
+     "      combine(e, e2, o);\n      e = o;\n    }\n    cluster_barrier(cluster, C);\n"
+     "    if (live) store_elem(buf[cur ^ 1], P, l, e);\n    cluster_barrier(cluster, C);\n", 1),
+]}
+
+# gj_inv's pivot reciprocal through PivotOps::div (float: the IEEE quotient's
+# bits for every pair, without the library division's slow-path branch on
+# the chain; double keeps the library's), for K5's build only.
+K5_GJ_PIVOT_DIV = {"gj_inv.cuh": [
+    ("#include <math.h>\n", "#include <math.h>\n\n#include \"pivot.cuh\"\n"
+     "__device__ __forceinline__ float gj_rcp(float d) { return PivotOps::div(1.0f, d); }\n"
+     "__device__ __forceinline__ double gj_rcp(double d) { return 1.0 / d; }\n", 1),
+    ("    const S piv = S(1) / M[k][k];\n", "    const S piv = gj_rcp(M[k][k]);\n", 1),
+]}
+
+# A cluster of one block launched as a plain grid (no cluster attribute; the
+# card still runs it as a cluster of one), to read the cluster launch's own
+# cost at the replan's shape.
+K5_PLAIN_LAUNCH = {"pscan_backward.cu": [
+    ("  err = cudaLaunchKernelEx(&cfg, pscan_backward_cluster_kernel<S, DX, DU>, a, P);\n",
+     "  if (cluster == 1)\n"
+     "    pscan_backward_cluster_kernel<S, DX, DU><<<1, cfg.blockDim, cfg.dynamicSmemBytes, stream>>>(a, P);\n"
+     "  else\n"
+     "    err = cudaLaunchKernelEx(&cfg, pscan_backward_cluster_kernel<S, DX, DU>, a, P);\n", 1),
+]}
+
+# The one-block cluster's refinements taken back, to measure them on the kept
+# kernel: its loads through in_block's generic address (as a larger
+# cluster's), and dV through the shared terms and a second pass (as a larger
+# cluster's reduction).
+K5_GENERIC_LOADS = {"pscan_backward.cu": [
+    ("      else if (C == 1) load_elem(buf[cur], P, u, e2);\n", "", 1),
+    ("      const S* src = C == 1 ? buf[cur] : in_block(cluster, buf[cur], u / P, rank);\n",
+     "      const S* src = in_block(cluster, buf[cur], u / P, rank);\n", 1),
+]}
+K5_SHARED_DV = {"pscan_backward.cu": [
+    ("  if (C == 1) {\n    S dv0 = S(0), dv1 = S(0);\n",
+     "  if (false) {\n    S dv0 = S(0), dv1 = S(0);\n", 1),
+]}

@@ -30,6 +30,16 @@ clock64 stamps of K7's step at the fastest and the slowest path launch, at
 α = 1 and at the dual chain, and of K8's step; the registers and spills of
 every K7 and K8 build.
 
+``--kernels K5`` (the parallel-in-time backward): the parent's K5 (one
+block, the elements in a global scratch) on each of the 6 launches of
+chip_smoke.py's replan (Pendulum-TO-v0, dt=0.05, T=100, 3 iterations,
+backward="cuda-pscan"; operands kept, each launch replayed, device ms from
+torch.profiler) and on chip_smoke.py's seeded SPD problem at T=1000, dims
+4/2; the replan's ms; clock64 stamps at both shapes (cycles a level, split
+into the loads, the combine, the stores and the barrier, and the element
+build, the gains and the dV reduction); the registers and spills of every
+(dtype, dx, du) build.
+
 See common.py for how to run it."""
 import ctypes
 import json
@@ -39,8 +49,9 @@ import numpy as np
 
 import common as C
 from common import log, torch
-from patches import DIV_COUNT, K6_STAMPS, K6_STAMP_NAMES, K7_STAMPS, K7_STAMP_NAMES, K8_STAMPS, \
-    K8_STAMP_NAMES, K13_STAMPS, K13_STAMP_NAMES, stamp_report, stamps_per_step, sweep_stamps
+from patches import DIV_COUNT, K5_GLOBAL_STAMPS, K6_STAMPS, K6_STAMP_NAMES, K7_STAMPS, K7_STAMP_NAMES, K8_STAMPS, \
+    K8_STAMP_NAMES, K13_STAMPS, K13_STAMP_NAMES, k5_stamp_report, stamp_report, stamps_per_step, \
+    sweep_stamps
 
 import chip_smoke
 import trajopt_torch
@@ -48,7 +59,7 @@ import trajopt_torch.parallel.bsp as bsp_module
 import trajopt_torch.parallel.gps as gps_module
 import trajopt_torch.parallel.mpc as mpcmod
 from trajopt_torch.core import cuda_belief as cb, cuda_elqr as ce, cuda_gps as cg, \
-    cuda_rollout as cr
+    cuda_pscan as cp, cuda_rollout as cr
 from trajopt_torch.core.cuda_lqr import to_soa
 from trajopt_torch.parallel.elqr import make_elqr_solver_batched
 from trajopt_torch.parallel.mpc import make_ilqr_solver_batched
@@ -387,5 +398,69 @@ def kl_belief(opts, res):
     log(json.dumps(res["K8 stamps"]))
 
 
+def k5_replan(wrapper):
+    """chip_smoke.py's replan with ``cuda_pscan.cuda_pilqr_backward`` replaced
+    by ``wrapper``: its launches' operands (kept) and the replan's ms."""
+    pend = trajopt_torch.make("Pendulum-TO-v0", dt=0.05)
+    x0 = torch.tensor(pend.x0, **f32)
+    solve = mpcmod.make_ilqr_solver(pend, chip_smoke.T_REPLAN, nb_iter=chip_smoke.ITER_REPLAN,
+                                    backward="cuda-pscan", device=dev, dtype=torch.float32)
+    saved = cp.cuda_pilqr_backward
+    cp.cuda_pilqr_backward = wrapper
+    try:
+        kept = C.capture([cp], ["cuda_pilqr_backward"], lambda: solve(x0))["cuda_pilqr_backward"]
+        ms = solve_ms(lambda: solve(x0))
+    finally:
+        cp.cuda_pilqr_backward = saved
+    return kept, ms
+
+
+def k5_problems(kept):
+    """K5's problems of the A/B scripts: the replan's kept launches, the
+    seeded SPD problem at T=1000 dims 4/2 (float32 and float64), the MPC
+    path's first backward (T=25) and chip_smoke.py's float64 and non-PD
+    checks."""
+    out = {f"replan launch {i + 1}": a for i, a in enumerate(kept)}
+    out["SPD T=1000 4/2"] = chip_smoke.pscan_problem(1000, 4, 2, torch.float32, dev)
+    pend = trajopt_torch.make("Pendulum-TO-v0", dt=0.05).replace(uw=(1e-5,))
+    x0 = torch.tensor(pend.x0, **f32)
+    out["MPC T=25 2/1"] = chip_smoke.replan_inputs(pend, x0, chip_smoke.MPC_HORIZON)[:3]
+    for T in (60, 333):
+        out[f"SPD T={T} 4/2"] = chip_smoke.pscan_problem(T, 4, 2, torch.float32, dev)
+    for T, dx, du in ((19, 3, 2), (130, 2, 1), (1000, 4, 2), (2500, 4, 2)):
+        cost, A, B = chip_smoke.pscan_problem(T, dx, du, torch.float64, dev, seed=T)
+        for lam in (0.0, 0.6):
+            out[f"f64 T={T} {dx}/{du} λ={lam}"] = (chip_smoke.with_lambda(cost, lam), A, B)
+    out["f64 non-PD T=130 2/1"] = chip_smoke.pscan_problem(130, 2, 1, torch.float64, dev,
+                                                           non_pd=True)
+    return out
+
+
+def k5(opts, res):
+    par = opts.parent
+    stamped = C.patched_copy(par, K5_GLOBAL_STAMPS, "s0_k5")
+    C.build_variants({"k5 par": par / "pscan_backward.cu",
+                      "k5 par stamped": stamped / "pscan_backward.cu"})
+    res["ptxas"] = C.reports
+    log(json.dumps(res["ptxas"]))
+    kept, res["replan_ms"] = k5_replan(C.k5_wrapper("k5 par"))
+    log(f"replan: {len(kept)} K5 launches, ms {res['replan_ms']}")
+    spd = chip_smoke.pscan_problem(1000, 4, 2, torch.float32, dev)
+    shapes = {f"replan launch {i + 1}": a for i, a in enumerate(kept)}
+    shapes["SPD T=1000 4/2"] = spd
+    res["ms"] = {}
+    for key, a in shapes.items():
+        res["ms"][key] = [chip_smoke.device_ms_per_launch(
+            lambda: C.k5_call("k5 par", *a), 50, "pscan_backward")[0] for _ in range(2)]
+    log(json.dumps(res["ms"]))
+    fn, buf = stamp_buffer("k5 par stamped", "k5_stamps")
+    res["stamps"] = {}
+    for key in ("replan launch 1", "SPD T=1000 4/2"):
+        C.k5_call("k5 par stamped", *shapes[key])
+        fn(buf, 1)
+        res["stamps"][key] = k5_stamp_report(list(buf))
+    log(json.dumps(res["stamps"]))
+
+
 if __name__ == "__main__":
-    C.run({"K11,K12,K2,K3": sweeps, "K6,K7,K13": gps_k13, "K7,K8": kl_belief})
+    C.run({"K11,K12,K2,K3": sweeps, "K6,K7,K13": gps_k13, "K7,K8": kl_belief, "K5": k5})

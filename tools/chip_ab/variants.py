@@ -31,6 +31,21 @@ shape, K8 on every BSP path launch and at Car's (4, 2) for reg 1 and 2) and
 timed there in turns (the builds in order, then in reverse); clock64 stamps
 of the kept K8.
 
+``--kernels K5``: the cluster route's shapes not taken, against the kept one
+(k5_route's cluster of C blocks, two copies of the elements, the library's
+pivot reciprocal): clusters of 1, 2, 4, 8 and 16 blocks (16 with the
+non-portable size; those with at most 256 positions a block) at the
+replan's first launch (T=100, dims 2/1), at T=200, 333 and 1000 dims 4/2
+(float32), one copy of the elements (a second cluster
+barrier a level, ``K5_ONE_COPY``), gj_inv's reciprocal through
+PivotOps::div (``K5_GJ_PIVOT_DIV``) and, where the kept route is a cluster
+of one block, that block launched as a plain grid (``K5_PLAIN_LAUNCH``),
+reading through in_block's generic address (``K5_GENERIC_LOADS``),
+reducing dV through the shared terms as a larger cluster does
+(``K5_SHARED_DV``) and both (the kept block's two refinements taken back);
+each held to the kept build bit for bit there and in float64 at T=1000,
+and timed (torch.profiler) in turns, the builds in order, then in reverse.
+
 See common.py for how to run it."""
 import ctypes
 import json
@@ -38,6 +53,8 @@ import time
 
 import common as C
 from common import log, torch
+from patches import K5_GENERIC_LOADS, K5_GJ_PIVOT_DIV, K5_ONE_COPY, K5_PLAIN_LAUNCH, \
+    K5_SHARED_DV
 from patches import BELIEF_WALK_STAMPS, EXACT_ON_CHAIN, K7_21_P12, K7_LIBRARY_FACTORS, \
     K8_LIBRARY_FACTOR, KL_ON_PRODUCERS, NEW_K6_STAMPS, \
     WALK_K8_NAMES, WIDE_BIT_ON_PARENT, WIDE_OR_ON_KEPT, k6_variant, k8_variant, merge, walk_first, \
@@ -49,7 +66,7 @@ import trajopt_torch.parallel.bsp as bsp_module
 import trajopt_torch.parallel.gps as gps_module
 import trajopt_torch.parallel.mpc as mpcmod
 from trajopt_torch.core import cuda_belief as cb, cuda_elqr as ce, cuda_gps as cg, \
-    cuda_rollout as cr
+    cuda_pscan as cp, cuda_rollout as cr
 from trajopt_torch.core.cuda_lqr import to_soa
 from trajopt_torch.parallel.elqr import make_elqr_solver_batched
 from trajopt_torch.parallel.mpc import make_ilqr_solver_batched
@@ -339,5 +356,66 @@ def k7_k8_shapes(opts, res):
     log(json.dumps(res["stamps"]))
 
 
+def k5_shapes(opts, res):
+    from step0 import k5_replan
+
+    res["failures"] = []
+    C.build_variants({
+        "k5 kept": C.NEW / "pscan_backward.cu",
+        "k5 one copy": C.patched_copy(C.NEW, K5_ONE_COPY, "v_k5_one") / "pscan_backward.cu",
+        "k5 gj div": C.patched_copy(C.NEW, K5_GJ_PIVOT_DIV, "v_k5_div") / "pscan_backward.cu",
+        "k5 plain launch": C.patched_copy(C.NEW, K5_PLAIN_LAUNCH, "v_k5_plain") /
+        "pscan_backward.cu",
+        "k5 generic loads": C.patched_copy(C.NEW, K5_GENERIC_LOADS, "v_k5_generic") /
+        "pscan_backward.cu",
+        "k5 shared dV": C.patched_copy(C.NEW, K5_SHARED_DV, "v_k5_sdv") / "pscan_backward.cu",
+        "k5 generic loads + shared dV": C.patched_copy(
+            C.NEW, merge(K5_GENERIC_LOADS, K5_SHARED_DV), "v_k5_both") / "pscan_backward.cu"})
+    res["ptxas"] = C.reports
+    C.use("pscan_backward.cu", "k5 kept")
+    kept, _ = k5_replan(cp.cuda_pilqr_backward)
+    problems = {"replan launch 1": kept[0],
+                "SPD T=200 4/2": chip_smoke.pscan_problem(200, 4, 2, torch.float32, dev),
+                "SPD T=333 4/2": chip_smoke.pscan_problem(333, 4, 2, torch.float32, dev),
+                "SPD T=1000 4/2": chip_smoke.pscan_problem(1000, 4, 2, torch.float32, dev),
+                "f64 T=1000 4/2": chip_smoke.pscan_problem(1000, 4, 2, torch.float64, dev)}
+    builds = {}
+    for key, a in problems.items():
+        C_kept = cp.k5_route(a[1].shape[0], a[1].shape[-1], a[1].dtype)[1]
+        for c in (1, 2, 4, 8, 16):
+            if -(-(a[1].shape[0] + 1) // c) <= cp.K5_MAX_THREADS:   # a thread a position
+                builds[(key, f"cluster {c}")] = ("k5 kept", c)
+        one_block = ("plain launch", "generic loads", "shared dV", "generic loads + shared dV")
+        for lab in ("one copy", "gj div") + (one_block if C_kept == 1 else ()):
+            builds[(key, lab)] = (f"k5 {lab}", C_kept)
+        builds[(key, "kept")] = ("k5 kept", C_kept)
+    res["bits_equal_kept"] = {}
+    for (key, lab), (lib, c) in builds.items():
+        a = problems[key]
+        ref = C.digest(C.k5_call("k5 kept", *a, cluster=builds[(key, "kept")][1]))
+        try:
+            ok = C.digest(C.k5_call(lib, *a, cluster=c)) == ref
+        except (RuntimeError, ValueError) as e:
+            ok = f"refused: {e}"
+        res["bits_equal_kept"][f"{key} {lab}"] = ok
+        if ok is not True:
+            res["failures"].append(f"K5 {key} {lab}: {ok}")
+    log(json.dumps(res["bits_equal_kept"]))
+    order = [k for k in builds if k[0] != "f64 T=1000 4/2"]
+    res["turns"] = []
+    for turn in (order, order[::-1]):
+        d = {}
+        for key, lab in turn:
+            lib, c = builds[(key, lab)]
+            try:
+                d[f"{key} {lab}"] = chip_smoke.device_ms_per_launch(
+                    lambda: C.k5_call(lib, *problems[key], cluster=c), 50, "pscan_backward")[0]
+            except (RuntimeError, ValueError, SystemExit) as e:
+                d[f"{key} {lab}"] = f"refused: {e}"
+        res["turns"].append(d)
+        log(json.dumps(d))
+
+
 if __name__ == "__main__":
-    C.run({"K2,K3,K11,K12": rollout_vote_and_blocks, "K6": k6_shape, "K7,K8": k7_k8_shapes})
+    C.run({"K2,K3,K11,K12": rollout_vote_and_blocks, "K6": k6_shape, "K7,K8": k7_k8_shapes,
+           "K5": k5_shapes})

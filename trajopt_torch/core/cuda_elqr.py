@@ -75,7 +75,7 @@ class _Dual:
     """A value ``v (N,)`` and its tangents ``d (n, N)``: forward-mode
     arithmetic with the formulas of ``csrc/dual.cuh`` (a quotient's tangent
     times the divisor's reciprocal), for the plain versions' Jacobians.  It
-    covers the operations of Cartpole's ODE and features."""
+    covers the operations of Cartpole's and Pendulum's ODEs and features."""
 
     def __init__(self, v: Tensor, d: Tensor):
         self.v, self.d = v, d

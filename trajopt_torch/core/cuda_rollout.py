@@ -109,12 +109,16 @@ class EnvParams(ctypes.Structure):
 
 
 def env_kernel_args(env, dx: int, du: int) -> tuple[int, EnvParams]:
-    """(env kind, EnvParams) for the C entry points: kind 0 is Cartpole
-    (identity features), 1 is Cartpole with the Cartesian (cos/sin) cost.
-    Raises unless the streams' ``dx``/``du`` are the env's."""
+    """(env kind, EnvParams) for the C entry points (``csrc/envs.cuh``
+    ``with_env``): kind 0 is Cartpole (identity features), 1 Cartpole with the
+    Cartesian (cos/sin) cost, 2 Pendulum, 3 Pendulum with the Cartesian cost.
+    Raises for an env without device functions, and unless the streams'
+    ``dx``/``du`` are the env's."""
     from ..envs.cartpole import Cartpole, CartpoleWithCartesianCost
+    from ..envs.pendulum import Pendulum, PendulumWithCartesianCost
 
-    kinds = {Cartpole: 0, CartpoleWithCartesianCost: 1}
+    kinds = {Cartpole: 0, CartpoleWithCartesianCost: 1, Pendulum: 2,
+             PendulumWithCartesianCost: 3}
     kind = kinds.get(type(env))
     if kind is None:
         raise ValueError(f"no CUDA kernel is written for {type(env).__name__}")

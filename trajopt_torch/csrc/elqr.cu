@@ -690,9 +690,9 @@ static int launch(int which, const EnvParams& p, const void* const* a, const int
 template <typename S>
 static int dispatch_env(int which, int kind, const EnvParams& p, const void* const* a,
                         const int* ints, cudaStream_t s) {
-  if (kind == 0) return launch<S, Cartpole>(which, p, a, ints, s);
-  if (kind == 1) return launch<S, CartpoleCartesian>(which, p, a, ints, s);
-  return -1;
+  return with_env(kind, [&](auto env) {
+    return launch<S, decltype(env)>(which, p, a, ints, s);
+  });
 }
 
 static int dispatch(int which, int dtype, int kind, const EnvParams* p, const void* const* a,
@@ -703,8 +703,8 @@ static int dispatch(int which, int dtype, int kind, const EnvParams* p, const vo
   return -1;
 }
 
-// C entry points.  dtype: 0 float32, 1 float64; kind: 0 Cartpole, 1 Cartpole
-// with the Cartesian cost.  Streams (rows, entries, N), x vectors (dx, N).
+// C entry points.  dtype: 0 float32, 1 float64; kind: envs.cuh's with_env
+// (Cartpole and Pendulum, each with its Cartesian-cost variant).  Streams (rows, entries, N), x vectors (dx, N).
 // Each returns the CUDA error of the launch, or -1 for an unsupported (dtype,
 // kind).  comev0 and gov0 may be null; xs and us are null for a rollout that
 // stores nothing.

@@ -172,13 +172,13 @@ static int launch(const EnvParams& p, const void* const* in, void* const* out, i
 template <typename S>
 static int dispatch_env(int kind, const EnvParams& p, const void* const* in, void* const* out,
                         int T, int Np, int reg, cudaStream_t s) {
-  if (kind == 0) return launch<S, Cartpole>(p, in, out, T, Np, reg, s);
-  if (kind == 1) return launch<S, CartpoleCartesian>(p, in, out, T, Np, reg, s);
-  return -1;
+  return with_env(kind, [&](auto env) {
+    return launch<S, decltype(env)>(p, in, out, T, Np, reg, s);
+  });
 }
 
-// C entry point.  dtype: 0 float32, 1 float64; kind: 0 Cartpole, 1 Cartpole
-// with the Cartesian cost.  Returns the CUDA error of the launch, or -1 for an
+// C entry point.  dtype: 0 float32, 1 float64; kind: envs.cuh's with_env
+// (Cartpole and Pendulum, each with its Cartesian-cost variant).  Returns the CUDA error of the launch, or -1 for an
 // unsupported (dtype, kind) or an Np that is not a multiple of the group (16).
 extern "C" int trajopt_fused_backward(
     int dtype, int kind, const EnvParams* params, const void* xref, const void* uref,

@@ -310,8 +310,8 @@ static int launch_selected(const EnvParams& p, const void* const* in, void* cons
                      (S*)out[2], (S*)out[3]);
 }
 
-// C entry points.  dtype: 0 float32, 1 float64; kind: 0 Cartpole, 1 Cartpole
-// with the Cartesian cost.  Each returns the CUDA error of the launch, or -1
+// C entry points.  dtype: 0 float32, 1 float64; kind: envs.cuh's with_env
+// (Cartpole and Pendulum, each with its Cartesian-cost variant).  Each returns the CUDA error of the launch, or -1
 // for an unsupported (dtype, kind) or an Np that is not a multiple of the
 // group (16).  The four streams must be 16-byte aligned.
 extern "C" int trajopt_rollout_returns(int dtype, int kind, const EnvParams* params,
@@ -323,11 +323,12 @@ extern "C" int trajopt_rollout_returns(int dtype, int kind, const EnvParams* par
   void* out[2] = {ret, ok};
   cudaStream_t s = (cudaStream_t)stream;
   const EnvParams& p = *params;
-  if (dtype == 0 && kind == 0) return launch_returns<float, Cartpole>(p, in, out, T, Np, nA, s);
-  if (dtype == 0 && kind == 1) return launch_returns<float, CartpoleCartesian>(p, in, out, T, Np, nA, s);
-  if (dtype == 1 && kind == 0) return launch_returns<double, Cartpole>(p, in, out, T, Np, nA, s);
-  if (dtype == 1 && kind == 1) return launch_returns<double, CartpoleCartesian>(p, in, out, T, Np, nA, s);
-  return -1;
+  return with_env(kind, [&](auto env) {
+    using Env = decltype(env);
+    if (dtype == 0) return launch_returns<float, Env>(p, in, out, T, Np, nA, s);
+    if (dtype == 1) return launch_returns<double, Env>(p, in, out, T, Np, nA, s);
+    return -1;
+  });
 }
 
 extern "C" int trajopt_rollout_selected(int dtype, int kind, const EnvParams* params,
@@ -339,9 +340,10 @@ extern "C" int trajopt_rollout_selected(int dtype, int kind, const EnvParams* pa
   void* out[4] = {xs, us, xT, ret};
   cudaStream_t s = (cudaStream_t)stream;
   const EnvParams& p = *params;
-  if (dtype == 0 && kind == 0) return launch_selected<float, Cartpole>(p, in, out, T, Np, s);
-  if (dtype == 0 && kind == 1) return launch_selected<float, CartpoleCartesian>(p, in, out, T, Np, s);
-  if (dtype == 1 && kind == 0) return launch_selected<double, Cartpole>(p, in, out, T, Np, s);
-  if (dtype == 1 && kind == 1) return launch_selected<double, CartpoleCartesian>(p, in, out, T, Np, s);
-  return -1;
+  return with_env(kind, [&](auto env) {
+    using Env = decltype(env);
+    if (dtype == 0) return launch_selected<float, Env>(p, in, out, T, Np, s);
+    if (dtype == 1) return launch_selected<double, Env>(p, in, out, T, Np, s);
+    return -1;
+  });
 }

@@ -17,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -62,11 +64,13 @@ def library_path(source: str) -> Path:
 
 def build(sources=SOURCES) -> dict[str, str]:
     """Compile every stale source in parallel; return each source's compiler
-    report (``-Xptxas -v``: registers, spills), empty for a reused library.
-    Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    report (``-Xptxas -v``: registers, spills), its first line the seconds
+    its ``nvcc`` took, empty for a reused library.  Raises ``RuntimeError``
+    with the compiler's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs = {}
+    start = time.perf_counter()
     for src in sources:
         out = library_path(src)
         if out.exists():
@@ -77,11 +81,18 @@ def build(sources=SOURCES) -> dict[str, str]:
         jobs[src] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
+
+    def finish(proc):
+        log, _ = proc.communicate()
+        return log, time.perf_counter() - start
+
     reports = {src: "" for src in sources}
     failed = []
+    with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        done = {src: pool.submit(finish, job[2]) for src, job in jobs.items()}
     for src, (out, tmp, proc) in jobs.items():
-        log, _ = proc.communicate()
-        reports[src] = log
+        log, seconds = done[src].result()
+        reports[src] = f"nvcc {src}: {seconds:.1f} s\n{log}"
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:
